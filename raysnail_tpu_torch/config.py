@@ -56,12 +56,18 @@ class RenderConfig:
     ray_batch: int = 1 << 25     # rays per dispatch of the sample-step path
     use_pallas: str = "auto"     # JAX package only; the port's sphere sweep
                                  # always runs its kernel on CUDA tensors
+    # BVH traversal kernel routes (integrator.kernel_routes): "auto" takes
+    # the kernel on CUDA (sphere groups from 4096 spheres), the dense or
+    # brute routes on the CPU; "force" always takes the kernel route; any
+    # other value keeps the dense routes
     mesh_pallas: str = "auto"
     sphere_bvh: str = "auto"
     box_bvh: str = "auto"
     path_regen: str = "auto"     # "auto" = the shuffled regeneration frame step
-    mesh_sort: bool = False
-    mesh_bin: str = "auto"
+    mesh_sort: bool = False      # not ported, by decision (ROADMAP "Not to port")
+    mesh_bin: str = "auto"       # ray binning ahead of the mesh kernel: "auto"
+                                 # (= "entry" on CUDA, else "never") | "never" |
+                                 # "entry" | "dir" | "entrydir" | "miss"
     remat_bounces: bool = True
     regen_chunk_cap: int = 0     # cap on the regen-shuffle chunk width C;
                                  # 0 = REGEN_CHUNK_CAP
@@ -100,5 +106,9 @@ class RenderConfig:
             out.append("path_regen='never': the sample-step path (ROADMAP M8)")
         if self.regen_window != 0:
             out.append("regen_window != 0: not ported, by decision")
+        if self.mesh_sort:
+            out.append("mesh_sort=True: not ported, by decision (ROADMAP 'Not to port')")
+        if self.mesh_bin not in ("auto", "never", "entry", "dir", "entrydir", "miss"):
+            out.append(f"mesh_bin={self.mesh_bin!r}: no such binning mode")
         return out
 

@@ -15,12 +15,12 @@ from raysnail_tpu_torch import lights as lightslib
 from raysnail_tpu_torch import materials as matlib
 from raysnail_tpu_torch import textures as texlib
 from raysnail_tpu_torch.camera import Camera
-from raysnail_tpu_torch.geometry import boxes, spheres
+from raysnail_tpu_torch.geometry import boxes, spheres, triangles
 from raysnail_tpu_torch.prelude.vec import Vec3
 from raysnail_tpu_torch.scene import Background, SceneArrays
 
 # SceneArrays fields of the JAX package that this port does not carry yet
-_NOT_PORTED = ("rects", "quadrics", "triangles")
+_NOT_PORTED = ("rects", "quadrics")
 
 
 def _leaf(x, device):
@@ -52,6 +52,7 @@ def scene_arrays_from_numpy(arrays, device) -> SceneArrays:
     return SceneArrays(
         spheres=_by_name(spheres.SphereGroup, arrays.spheres, device),
         boxes=_by_name(boxes.BoxGroup, arrays.boxes, device),
+        triangles=_by_name(triangles.TriangleGroup, arrays.triangles, device),
         materials=_by_name(matlib.MaterialTable, arrays.materials, device),
         textures=_by_name(texlib.TextureTable, arrays.textures, device),
         lights=_by_name(lightslib.LightArrays, arrays.lights, device),

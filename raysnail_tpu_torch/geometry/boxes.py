@@ -6,8 +6,10 @@ box.rs:48-149). Oriented boxes carry a per-box world->object affine; the
 slab test runs in object space, with inverse-transpose normals. The winner
 of the dense (rays x boxes) sweep is gathered by index.
 
-The packed-BVH route for groups of 130 or more boxes is not ported yet
-(ROADMAP M12); scene compile keeps every group on this dense sweep.
+Axis-aligned groups of BOX_BVH_MIN_BUILD (130) or more boxes also carry a
+packed BVH; `intersect_kernel` runs them through the BVH traversal kernel
+(`ops.bvh_traverse` kind "box"), which returns the winning face's axis, entry
+flag, uv and material.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from raysnail_tpu_torch.geometry import hit as hitlib
 from raysnail_tpu_torch.geometry.hit import BIG, Hit
+from raysnail_tpu_torch.ops.bvh_traverse import bvh_traverse, lane_caps
 from raysnail_tpu_torch.prelude.vec import Vec3
 
 
@@ -31,6 +34,10 @@ class BoxGroup(NamedTuple):
     # normals -> world.
     inv_rows: tuple | None = None  # (row0, row1, row2) Vec3s, each (B,)
     inv_off: Vec3 | None = None    # (B,)
+    # packed BVH for the traversal kernel (large axis-aligned groups only)
+    pk_bb: torch.Tensor | None = None     # (K, M, 8) f32
+    pk_links: torch.Tensor | None = None  # (K, M, 4) i32
+    pk_box: torch.Tensor | None = None    # (B', 8, 128) f32
 
 
 def _apply_rows(rows, off, v: Vec3, translate: bool) -> Vec3:
@@ -135,3 +142,21 @@ def intersect(group: BoxGroup, ray, t_min, t_max) -> Hit:
     u = _select_axis(rel.x, rel.y, rel.z, (axis + 1) % 3)
     v = _select_axis(rel.x, rel.y, rel.z, (axis + 2) % 3)
     return hitlib.finalize(ray.direction, t_best, geom_n, u, v, group.mat_id[idx], valid)
+
+
+def intersect_kernel(group: BoxGroup, ray, t_min, t_max, active=None, t_cap=None) -> Hit:
+    """Closest hit of an axis-aligned box group through the BVH traversal
+    kernel; only the normal is rebuilt here, from the face axis and the
+    entry flag. `active` and `t_cap` as for triangles.intersect_kernel."""
+    o, d = ray.origin, ray.direction
+    cap = lane_caps(d.x, t_cap, active)
+    t, axis_f, near_f, u, v, mat = bvh_traverse(
+        (o.x, o.y, o.z), (d.x, d.y, d.z), cap, group.pk_bb, group.pk_links, group.pk_box,
+        t_min, t_max, kind="box")
+    valid = t < BIG * 0.5
+    axis = torch.round(axis_f).to(torch.int32)
+    d_axis = _select_axis(d.x, d.y, d.z, axis)
+    sign = torch.where(near_f > 0.5, -torch.sign(d_axis), torch.sign(d_axis))
+    return hitlib.finalize(d, torch.where(valid, t, torch.full_like(t, BIG)),
+                           _axis_normal(axis, sign), u, v,
+                           torch.where(valid, mat, torch.full_like(mat, -1)), valid)

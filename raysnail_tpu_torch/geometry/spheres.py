@@ -7,8 +7,12 @@ first-index argmin is one call of `ops.sphere_min_t`, which runs the CUDA
 kernel on the card; the winner's center, radius and material are then
 gathered by index.
 
-Motion blur and the BVH route for very large groups are not ported yet
-(ROADMAP M12/M13); scene compile refuses scenes that need them.
+Groups of 64 or more spheres also carry a packed BVH; with `use_bvh` they
+go through the BVH traversal kernel (`ops.bvh_traverse` kind "sphere"),
+which returns the winner's center, radius and material itself.
+
+Motion blur is not ported yet (ROADMAP M4); scene compile refuses moving
+spheres.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 
 from raysnail_tpu_torch.geometry import hit as hitlib
 from raysnail_tpu_torch.geometry.hit import BIG, Hit
+from raysnail_tpu_torch.ops.bvh_traverse import bvh_traverse, lane_caps
 from raysnail_tpu_torch.ops.sphere_min_t import sphere_min_t
 from raysnail_tpu_torch.prelude.sampling import PI
 from raysnail_tpu_torch.prelude.vec import Vec3
@@ -29,11 +34,20 @@ class SphereGroup(NamedTuple):
     radius: torch.Tensor    # (S,)
     mat_id: torch.Tensor    # (S,) int32
     active: torch.Tensor    # (S,) bool — False for padding rows
+    # packed BVH for the traversal kernel (groups of >= 64 spheres)
+    pk_bb: torch.Tensor | None = None     # (K, M, 8) f32
+    pk_links: torch.Tensor | None = None  # (K, M, 4) i32
+    pk_sph: torch.Tensor | None = None    # (B, 8, 128) f32
 
 
-def intersect(group: SphereGroup, ray, t_min, t_max, need_uv: bool = True) -> Hit:
-    """Closest sphere hit per ray."""
+def intersect(group: SphereGroup, ray, t_min, t_max, need_uv: bool = True,
+              use_bvh: bool = False, active=None) -> Hit:
+    """Closest sphere hit per ray. use_bvh takes the BVH kernel route when
+    the group has a packed BVH; `active` (the integrator's alive mask) then
+    keeps dead lanes from admitting nodes."""
     o, d = ray.origin, ray.direction
+    if use_bvh and group.pk_bb is not None:
+        return _intersect_bvh(group, ray, t_min, t_max, need_uv, active)
     t_best, idx = sphere_min_t(
         (o.x, o.y, o.z), (d.x, d.y, d.z),
         (group.center.x, group.center.y, group.center.z),
@@ -52,6 +66,25 @@ def intersect(group: SphereGroup, ray, t_min, t_max, need_uv: bool = True) -> Hi
         u = torch.zeros_like(t_best)
         v = u
     return hitlib.finalize(d, t_best, geom_n, u, v, mat_id, valid)
+
+
+def _intersect_bvh(group: SphereGroup, ray, t_min, t_max, need_uv: bool, active) -> Hit:
+    o, d = ray.origin, ray.direction
+    cap = lane_caps(d.x, active=active)
+    t, cx, cy, cz, r, mat = bvh_traverse(
+        (o.x, o.y, o.z), (d.x, d.y, d.z), cap, group.pk_bb, group.pk_links, group.pk_sph,
+        t_min, t_max, kind="sphere")
+    valid = t < BIG * 0.5
+    center = Vec3(cx, cy, cz)
+    p = o + d * t
+    geom_n = (p - center) * (1.0 / torch.where(valid, r, torch.ones_like(r)))
+    if need_uv:
+        u, v = sphere_uv(p - center)
+    else:
+        u = torch.zeros_like(t)
+        v = u
+    return hitlib.finalize(d, t, geom_n, u, v, torch.where(valid, mat, torch.full_like(mat, -1)),
+                           valid)
 
 
 def sphere_uv(offset: Vec3):

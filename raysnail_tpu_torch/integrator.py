@@ -66,7 +66,37 @@ def _slot_layout(kinds: frozenset, has_lights: bool, mix_depth: int = 1):
     return idx, n
 
 
-def _make_shade(scene: scenelib.Scene, cfg: RenderConfig):
+# static sphere groups at least this large take the BVH traversal kernel
+# under sphere_bvh "auto" (the JAX package's crossover, measured on a TPU;
+# ROADMAP M12 asks for the H100's)
+SPHERE_BVH_AUTO_MIN = 4096
+
+
+def kernel_routes(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
+                  cfg: RenderConfig) -> scenelib.Routes:
+    """Which groups take the BVH traversal kernel: the JAX package's
+    `_pallas_policy` with "cpu" meaning the scene's tensors lie on the CPU.
+    On CUDA, "auto" routes every mesh through the kernel with "entry"
+    binning, large box groups through kind "box" and sphere groups of
+    SPHERE_BVH_AUTO_MIN or more through kind "sphere"; on the CPU it keeps
+    the dense and brute routes, and "force" takes the kernel route (whose
+    plain version runs on CPU tensors)."""
+    on_cpu = scene.device.type == "cpu"
+    mesh_kernel = cfg.mesh_pallas == "force" or (cfg.mesh_pallas == "auto" and not on_cpu)
+    n_spheres = arrays.spheres.radius.shape[0] if arrays.spheres is not None else 0
+    sphere_bvh = cfg.sphere_bvh == "force" or (
+        cfg.sphere_bvh == "auto" and not on_cpu and n_spheres >= SPHERE_BVH_AUTO_MIN)
+    has_box_pk = arrays.boxes is not None and arrays.boxes.pk_bb is not None
+    box_bvh = has_box_pk and (cfg.box_bvh == "force" or (cfg.box_bvh == "auto" and not on_cpu))
+    if cfg.mesh_bin == "auto":
+        mesh_bin = "entry" if mesh_kernel and not on_cpu else "never"
+    else:
+        mesh_bin = cfg.mesh_bin
+    return scenelib.Routes(mesh_kernel=mesh_kernel, mesh_bin=mesh_bin,
+                           sphere_bvh=sphere_bvh, box_bvh=box_bvh)
+
+
+def _make_shade(scene: scenelib.Scene, cfg: RenderConfig, routes: scenelib.Routes):
     """One bounce of the estimator: (arrays, o, d, T, L, alive, kb) ->
     (new_o, new_d, T, L, alive). Dead lanes keep their incoming ray state."""
     static = scene.static
@@ -76,7 +106,8 @@ def _make_shade(scene: scenelib.Scene, cfg: RenderConfig):
     def shade(arrays: scenelib.SceneArrays, o: Vec3, d: Vec3, T: Vec3, L: Vec3,
               alive, kb):
         zeros = Vec3.zeros(d.x.shape, T.x.dtype, T.x.device)
-        hit = scenelib.intersect(scene, arrays, Ray(o, d, None), cfg.t_min, cfg.t_max)
+        hit = scenelib.intersect(scene, arrays, Ray(o, d, None), cfg.t_min, cfg.t_max,
+                                 routes, active=alive)
 
         # miss -> background, die (camera.rs:254)
         bg = arrays.background.color(d)
@@ -164,6 +195,11 @@ def _make_shade(scene: scenelib.Scene, cfg: RenderConfig):
     return shade
 
 
+# lanes per image tile on the kernel routes, and the tile shapes tried in order
+PKT = 128
+TILES = ((16, 8), (8, 16), (32, 4), (4, 32), (64, 2), (128, 1))
+
+
 def chunk_width(spp: int, cap: int) -> int:
     """The largest divisor of spp that is <= cap."""
     return max(c for c in range(1, min(spp, cap) + 1) if spp % c == 0)
@@ -183,6 +219,11 @@ def radiance_regen_shuffle(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
     keyed by (seed, pixel, sample, bounce), so the estimate equals the JAX
     package's.
 
+    When a BVH kernel route is on, lanes decode to 128-pixel image tiles
+    and the shuffle rotates whole tiles, so neighbouring lanes trace
+    neighbouring pixels (coherent walks) for every k; the per-pixel sums
+    are the same either way.
+
     The loop's condition is read on the host once per iteration.
 
     Returns (L_sums row-major (N,) Vec3, n_iterations)."""
@@ -192,18 +233,37 @@ def radiance_regen_shuffle(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
     sqrt_spp = cfg.sqrt_spp
     if cfg.max_depth <= 0 or spp <= 0:
         return Vec3.zeros((n_pix,), dtype, device), 0
-    shade = _make_shade(scene, cfg)
+    routes = kernel_routes(scene, arrays, cfg)
+    shade = _make_shade(scene, cfg, routes)
 
     C = chunk_width(spp, cfg.chunk_cap)
     n_chunks = spp // C
-    # golden-ratio stride: a lane's consecutive cells land on far-apart
-    # pixels, decorrelating their path lengths
-    S = (int(n_pix * 0.6180339887) | 1) % n_pix
+    tile = None
+    if (routes.mesh_kernel or routes.box_bvh or routes.sphere_bvh) and n_pix % PKT == 0:
+        # rotate by whole 128-lane packets (image tiles when a shape fits)
+        tile = next(((tw, th) for tw, th in TILES
+                     if cfg.width % tw == 0 and cfg.height % th == 0), None)
+        n_pkt = n_pix // PKT
+        S = ((int(n_pkt * 0.6180339887) | 1) % n_pkt) * PKT
+    else:
+        # golden-ratio stride: a lane's consecutive cells land on far-apart
+        # pixels, decorrelating their path lengths
+        S = (int(n_pix * 0.6180339887) | 1) % n_pix
     lanes = torch.arange(n_pix, dtype=torch.int64, device=device)
+
+    def slot_pixel(m):
+        """Lane slot -> pixel id (the identity unless tiled)."""
+        if tile is None:
+            return m
+        tw, th = tile
+        tid, within = m // PKT, m % PKT
+        px = (tid % (cfg.width // tw)) * tw + within % tw
+        py = (tid // (cfg.width // tw)) * th + within // tw
+        return py * cfg.width + px
 
     def lane_pixel(k):
         """Rotated lane slot -> (pixel id, px, py)."""
-        p = (lanes + k * S) % n_pix
+        p = slot_pixel((lanes + k * S) % n_pix)
         return p, (p % cfg.width).to(dtype), (p // cfg.width).to(dtype)
 
     def lane_keys(k, cs0):
@@ -254,9 +314,13 @@ def radiance_regen_shuffle(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
             iterations += 1
 
         # regroup: column c's row i is lane slot (i + c*S) mod N -> roll
-        # forward to pixel order
+        # forward to slot order (pixel order unless tiled)
         table = table.view(3, n_pix, C)
         for c in range(C):
             shift = (c * S) % n_pix
             L_pix = L_pix + Vec3(*(torch.roll(table[a, :, c], shift) for a in range(3)))
+    if tile is not None:
+        owner = torch.empty_like(lanes)
+        owner[slot_pixel(lanes)] = lanes  # the slot holding pixel p
+        L_pix = L_pix[owner]
     return L_pix, iterations

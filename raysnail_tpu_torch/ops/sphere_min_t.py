@@ -15,70 +15,18 @@ a run can show that its sphere sweeps went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
 from raysnail_tpu_torch.geometry.hit import BIG
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "sphere_min_t.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-# -fmad=false: no a*b+c contraction, so the kernel rounds every product and
-# sum as the plain version does and the two agree bit for bit
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+from raysnail_tpu_torch.ops import _nvcc
 
 _lib = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the sphere_min_t kernel needs the CUDA "
-                       "toolkit to build")
-
-
-def library_path() -> str:
-    """The shared library's path, keyed by a hash of the source and flags."""
-    h = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"sphere_min_t_{h.hexdigest()[:16]}.so")
-
-
 def build(verbose: bool = False) -> str:
-    """Compile the kernel if its library is missing; -> the library path.
-    Raises RuntimeError with nvcc's output when the build fails."""
-    path = library_path()
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, SOURCE]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                               f"{proc.stdout}{proc.stderr}")
-        if verbose:
-            print(proc.stdout + proc.stderr, end="")
-        os.replace(tmp, path)  # atomic: a concurrent builder sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path
+    """Compile the kernel if its library is missing; -> the library path."""
+    return _nvcc.build_cuda("sphere_min_t", verbose)
 
 
 def _load():

@@ -1,9 +1,16 @@
 """Scene compilation: host IR -> flat SoA tensors on a device.
 
 The JAX package's `scene.py` for the primitives this port carries: static
-sphere groups and (oriented) box groups, the texture, material and light
-tables, and the background. Transforms are baked into primitive parameters
-at compile time, so the render hot path has no transform facade.
+sphere groups, (oriented) box groups and triangle meshes, the texture,
+material and light tables, and the background. Transforms are baked into
+primitive parameters at compile time, so the render hot path has no
+transform facade.
+
+Large groups are also packed for the BVH traversal kernel, with the JAX
+package's host packing and gates: every mesh, static sphere groups of 64 or
+more and axis-aligned box groups of BOX_BVH_MIN_BUILD or more get a fat-leaf
+BVH (`_leaf_tree`) and 128-wide leaf blocks (`_pack_leaf_blocks`), equal to
+the JAX compile's arrays.
 
 Primitives and features not ported yet raise NotImplementedError at
 compile, naming their ROADMAP item.
@@ -21,15 +28,22 @@ from raysnail_tpu_torch import ir
 from raysnail_tpu_torch import lights as lightslib
 from raysnail_tpu_torch import materials as matlib
 from raysnail_tpu_torch import textures as texlib
-from raysnail_tpu_torch.geometry import boxes, spheres
+from raysnail_tpu_torch.accel.bvh import build_bvh, relinearize_octants
+from raysnail_tpu_torch.geometry import boxes, spheres, triangles
 from raysnail_tpu_torch.geometry import transforms as tf
 from raysnail_tpu_torch.geometry.hit import Hit, combine_hits, miss
+from raysnail_tpu_torch.ops.bvh_traverse import LANES
 from raysnail_tpu_torch.prelude.vec import Vec3
+
+# the JAX package's packing gates and layout constants, kept for parity
+BOX_BVH_MIN_BUILD = 130    # axis-aligned box groups this large get a packed BVH
+SPHERE_PACK_MIN = 64       # static sphere groups this large get a packed BVH
+BRUTE_FORCE_MAX = 32768    # meshes up to this many triangles: dense sweep on the CPU
+OCTANT_CAP = 4600          # trees up to this many nodes get 8 octant orders
 
 _NOT_PORTED = {
     ir.Rect: "rects (ROADMAP M4)",
     ir.Quadric: "quadrics (ROADMAP M4)",
-    ir.Mesh: "triangle meshes (ROADMAP M10)",
     ir.Csg: "CSG (ROADMAP M13)",
     ir.ConstantMedium: "media (ROADMAP M13)",
     ir.Mandelbulb: "the Mandelbulb (ROADMAP M14)",
@@ -50,6 +64,7 @@ class Background(NamedTuple):
 class SceneArrays(NamedTuple):
     spheres: Optional[spheres.SphereGroup]
     boxes: Optional[boxes.BoxGroup]
+    triangles: Optional[triangles.TriangleGroup]
     materials: matlib.MaterialTable
     textures: texlib.TextureTable
     lights: Optional[lightslib.LightArrays]
@@ -64,6 +79,7 @@ class SceneStatic:
     has_lights: bool
     has_absorb: bool = False  # any dielectric with Beer-Lambert absorption
     mix_depth: int = 1        # max Mixed-material nesting (resolve iterations)
+    tri_brute: bool = False   # dense triangle sweep on the CPU (small meshes)
 
 
 @dataclasses.dataclass
@@ -73,18 +89,46 @@ class Scene:
     device: torch.device
 
 
-def intersect(scene: Scene, arrays: SceneArrays, ray, t_min, t_max) -> Hit:
-    """Closest hit across all primitive groups. `arrays` is passed
-    separately so a caller can render other scene data (e.g. converted from
-    the JAX package) with the same static structure."""
+class Routes(NamedTuple):
+    """Which primitive groups take the BVH traversal kernel
+    (integrator.kernel_routes); the defaults are the dense routes."""
+    mesh_kernel: bool = False
+    mesh_bin: str = "never"
+    sphere_bvh: bool = False
+    box_bvh: bool = False
+
+
+def intersect(scene: Scene, arrays: SceneArrays, ray, t_min, t_max,
+              routes: Routes = Routes(), active=None) -> Hit:
+    """Closest hit across all primitive groups, in the JAX package's order:
+    spheres, boxes, triangles. `arrays` is passed separately so a caller can
+    render other scene data (e.g. converted from the JAX package) with the
+    same static structure. `active` is the integrator's alive mask: on the
+    kernel routes dead lanes admit no BVH node, and the box and triangle
+    routes take the best hit so far as their admission cap (t_cap)."""
     d = ray.direction
     best = miss(d.x.shape, d.x.dtype, d.x.device)
     if arrays.spheres is not None:
         best = combine_hits(best, spheres.intersect(
             arrays.spheres, ray, t_min, t_max,
-            need_uv=texlib.IMAGE in scene.static.tex_modes))
+            need_uv=texlib.IMAGE in scene.static.tex_modes,
+            use_bvh=routes.sphere_bvh, active=active))
     if arrays.boxes is not None:
-        best = combine_hits(best, boxes.intersect(arrays.boxes, ray, t_min, t_max))
+        if routes.box_bvh and arrays.boxes.pk_bb is not None:
+            best = combine_hits(best, boxes.intersect_kernel(
+                arrays.boxes, ray, t_min, t_max, active=active, t_cap=best.t))
+        else:
+            best = combine_hits(best, boxes.intersect(arrays.boxes, ray, t_min, t_max))
+    if arrays.triangles is not None:
+        # on the CPU a big mesh takes the kernel route's plain version: the
+        # port carries no thin-BVH lockstep walk
+        if routes.mesh_kernel or not scene.static.tri_brute:
+            tri_hit = triangles.intersect_kernel(
+                arrays.triangles, ray, t_min, t_max, active=active, t_cap=best.t,
+                bin_mode=routes.mesh_bin)
+        else:
+            tri_hit = triangles.intersect_brute(arrays.triangles, ray, t_min, t_max)
+        best = combine_hits(best, tri_hit)
     return best
 
 
@@ -231,7 +275,7 @@ class _Tables:
 
 def _compile(builder: SceneBuilder, dtype, device: torch.device) -> Scene:
     tables = _Tables()
-    sph, box_list = [], []
+    sph, box_list, mesh_list = [], [], []
 
     for obj in builder.objects:
         for kind, what in _NOT_PORTED.items():
@@ -257,6 +301,8 @@ def _compile(builder: SceneBuilder, dtype, device: torch.device) -> Scene:
             mat = tables.material(obj.material)
             inv = tf.inverse_rows(m) if m is not None else (None, None)
             box_list.append((obj.p_min, obj.p_max, mat, *inv))
+        elif isinstance(obj, ir.Mesh):
+            mesh_list.append((obj, tables.material(obj.material)))
         else:
             raise TypeError(f"unknown object {obj!r}")
 
@@ -272,25 +318,56 @@ def _compile(builder: SceneBuilder, dtype, device: torch.device) -> Scene:
     def flags(n):
         return torch.ones(n, dtype=torch.bool, device=device)
 
+    def packed(arrs):  # host pk_* arrays -> tensors on the device
+        return [torch.as_tensor(a, device=device) for a in arrs]
+
     # the kernel takes any sphere count: no padding rows
     sphere_group = None
     if sph:
+        pk = [None] * 3
+        if len(sph) >= SPHERE_PACK_MIN:
+            c = np.asarray([s[0] for s in sph], np.float64)
+            r = np.asarray([s[1] for s in sph], np.float64)
+            pk = packed(_pack_leaf_blocks(
+                c - r[:, None], c + r[:, None],
+                [c[:, 0], c[:, 1], c[:, 2], r * r, np.ones(len(sph)),
+                 np.asarray([s[2] for s in sph], np.float64), r]))
         sphere_group = spheres.SphereGroup(
             center=vec([s[0] for s in sph]), radius=f32([s[1] for s in sph]),
-            mat_id=i32([s[2] for s in sph]), active=flags(len(sph)))
+            mat_id=i32([s[2] for s in sph]), active=flags(len(sph)),
+            pk_bb=pk[0], pk_links=pk[1], pk_sph=pk[2])
 
     box_group = None
     if box_list:
         inv_rows = inv_off = None
-        if any(b[3] is not None for b in box_list):
+        oriented = any(b[3] is not None for b in box_list)
+        if oriented:
             rots = np.asarray([b[3] if b[3] is not None else np.eye(3) for b in box_list])
             offs = np.asarray([b[4] if b[4] is not None else np.zeros(3) for b in box_list])
             inv_rows = tuple(vec(rots[:, i, :]) for i in range(3))
             inv_off = vec(offs)
+        pk = [None] * 3
+        if not oriented and len(box_list) >= BOX_BVH_MIN_BUILD:
+            lo = np.asarray([b[0] for b in box_list], np.float64)
+            hi = np.asarray([b[1] for b in box_list], np.float64)
+            pk = packed(_pack_leaf_blocks(
+                lo, hi, [lo[:, 0], lo[:, 1], lo[:, 2], hi[:, 0], hi[:, 1], hi[:, 2],
+                         np.ones(len(box_list)),
+                         np.asarray([b[2] for b in box_list], np.float64)]))
         box_group = boxes.BoxGroup(
             p_min=vec([b[0] for b in box_list]), p_max=vec([b[1] for b in box_list]),
             mat_id=i32([b[2] for b in box_list]), active=flags(len(box_list)),
-            inv_rows=inv_rows, inv_off=inv_off)
+            inv_rows=inv_rows, inv_off=inv_off, pk_bb=pk[0], pk_links=pk[1], pk_box=pk[2])
+
+    tri_group = None
+    if mesh_list:
+        tri = _build_triangles(mesh_list)
+        tri_group = triangles.TriangleGroup(
+            **{k: vec(v) for k, v in tri.items() if k in ("p0", "edge_a", "edge_d", "n0",
+                                                          "n1", "n2")},
+            mat_id=i32(tri["mat_id"]),
+            **dict(zip(("pk_bb", "pk_links", "pk_tri"),
+                       packed((tri["pk_bb"], tri["pk_links"], tri["pk_tri"])))))
 
     light_arrays = None
     light_kinds = set()
@@ -331,12 +408,100 @@ def _compile(builder: SceneBuilder, dtype, device: torch.device) -> Scene:
 
     c1, c2 = builder.background
     arrays = SceneArrays(
-        spheres=sphere_group, boxes=box_group, materials=material_table,
+        spheres=sphere_group, boxes=box_group, triangles=tri_group,
+        materials=material_table,
         textures=texture_table, lights=light_arrays,
         background=Background(c1=Vec3.full(c1, (), dtype, device),
                               c2=Vec3.full(c2, (), dtype, device)))
     static = SceneStatic(
         tex_modes=tex_modes, mat_kinds=frozenset(r["mtype"] for r in mr),
         light_kinds=frozenset(light_kinds), has_lights=light_arrays is not None,
-        has_absorb=has_absorb, mix_depth=tables.mix_depth)
+        has_absorb=has_absorb, mix_depth=tables.mix_depth,
+        tri_brute=tri_group is not None and tri_group.mat_id.shape[0] <= BRUTE_FORCE_MAX)
     return Scene(arrays=arrays, static=static, device=device)
+
+
+# -- host packing for the BVH traversal kernel -------------------------------
+
+def _leaf_tree(bb_min, bb_max):
+    """Fat-leaf BVH (leaf = LANES prims) node arrays for the traversal
+    kernel -> (pk_bb (K, M, 8) f32, pk_links (K, M, 4) i32, order, pad mask,
+    safe indices, n_blocks), where K = 8 direction-octant node orders
+    (front-to-back traversal) for trees of up to OCTANT_CAP nodes, else
+    K = 1 (build order)."""
+    fat = build_bvh(bb_min, bb_max, leaf_size=LANES)
+    order = fat.prim_order
+    pad = order < 0
+    safe = np.where(pad, 0, order)
+    m = fat.bb_min.shape[0]
+    if m <= OCTANT_CAP:
+        pk_bb, pk_links = relinearize_octants(fat)
+        pk_links[:, :, 0] //= LANES
+    else:
+        pk_bb = np.zeros((1, m, 8), np.float32)
+        pk_bb[0, :, 0:3] = fat.bb_min
+        pk_bb[0, :, 3:6] = fat.bb_max
+        pk_links = np.zeros((1, m, 4), np.int32)
+        pk_links[0, :, 0] = fat.first // LANES
+        pk_links[0, :, 1] = fat.count
+        pk_links[0, :, 2] = fat.miss
+    return pk_bb, pk_links, order, pad, safe, len(order) // LANES
+
+
+def _pack_leaf_blocks(bb_min, bb_max, fields):
+    """Fat-leaf BVH + (B, NF, LANES) field blocks: fields on rows, primitives
+    on lanes. Padding lanes are zeroed, so a `valid` field of ones marks the
+    real primitives. fields: list of (P,) arrays, one per row; NF rounds up
+    to a multiple of 8. -> (pk_bb, pk_links, pk_prim)."""
+    pk_bb, pk_links, order, pad, safe, n_blocks = _leaf_tree(bb_min, bb_max)
+    nf = -(-len(fields) // 8) * 8
+    pk = np.zeros((n_blocks, nf, LANES), np.float32)
+    for i, f in enumerate(fields):
+        vals = np.where(pad, 0.0, np.asarray(f, np.float64)[safe])
+        pk[:, i, :] = vals.reshape(n_blocks, LANES)
+    return pk_bb, pk_links, pk
+
+
+def _build_triangles(mesh_list) -> dict:
+    """Merge all meshes into one triangle pool -> host arrays: the
+    per-triangle data in thin-BVH leaf order (padding rows get mat_id -2), as
+    the JAX package orders it, and the kernel's fat-leaf BVH and leaf blocks
+    (the Cramer format)."""
+    from raysnail_tpu_torch.io.obj import vertex_normals
+
+    parts = {k: [] for k in ("p0", "p1", "p2", "n0", "n1", "n2", "mat")}
+    for spec, mat in mesh_list:
+        v = np.asarray(spec.vertices, np.float64)
+        faces = np.asarray(spec.indices, np.int32)
+        n = (vertex_normals(v, faces) if spec.normals is None
+             else np.asarray(spec.normals, np.float64))
+        for c in range(3):
+            parts[f"p{c}"].append(v[faces[:, c]])
+            parts[f"n{c}"].append(n[faces[:, c]])
+        parts["mat"].append(np.full(len(faces), mat, np.int32))
+    p0, p1, p2, n0, n1, n2, mat = (np.concatenate(parts[k]) for k in
+                                   ("p0", "p1", "p2", "n0", "n1", "n2", "mat"))
+
+    bb_min = np.minimum(np.minimum(p0, p1), p2)
+    bb_max = np.maximum(np.maximum(p0, p1), p2)
+    order = build_bvh(bb_min, bb_max).prim_order
+    pad = order < 0
+    safe = np.where(pad, 0, order)
+
+    def reorder(a):
+        out = a[safe].copy()
+        out[pad] = 0.0
+        return out
+
+    p0o, p1o, p2o = reorder(p0), reorder(p1), reorder(p2)
+    e1, e2 = p0 - p1, p0 - p2
+    pk_bb, pk_links, pk_tri = _pack_leaf_blocks(
+        bb_min, bb_max,
+        [p0[:, 0], p0[:, 1], p0[:, 2], e1[:, 0], e1[:, 1], e1[:, 2],
+         e2[:, 0], e2[:, 1], e2[:, 2], np.ones(len(p0)),
+         n0[:, 0], n0[:, 1], n0[:, 2], n1[:, 0], n1[:, 1], n1[:, 2],
+         n2[:, 0], n2[:, 1], n2[:, 2], mat.astype(np.float64)])
+    return dict(p0=p0o, edge_a=p0o - p1o, edge_d=p0o - p2o,
+                n0=reorder(n0), n1=reorder(n1), n2=reorder(n2),
+                mat_id=np.where(pad, -2, mat[safe]).astype(np.int32),
+                pk_bb=pk_bb, pk_links=pk_links, pk_tri=pk_tri)

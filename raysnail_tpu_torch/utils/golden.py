@@ -1,0 +1,147 @@
+"""The golden regression anchors that the port can render.
+
+The JAX package pins fixed-seed renders of representative scenes as
+anchors (`raysnail_tpu/utils/golden.py`): a block-mean thumbnail and the
+global mean and std per channel, committed in tests/golden/golden.npz. This
+module defines the same anchor scenes for the port (same scene, size, spp,
+depth, seed and forced kernel routes), renders them on a given device and
+holds them against the committed statistics with the same tolerances. It
+imports numpy and the port only, so it runs on a machine without JAX.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+GOLDEN_PATH = os.path.join(REPO, "tests", "golden", "golden.npz")
+
+# thumbnail block size: 8x8 pixel means are stable to low-bit float drift but
+# sensitive to any real estimator change
+BLOCK = 8
+THUMB_ATOL, MEAN_ATOL = 0.01, 0.003
+
+
+def mesh_scene(cfg, device, n_seg: int = 60, n_ring: int = 12):
+    """The JAX package's mesh scene (its `mesh` anchor and its bench's
+    mesh+arealight and mesh-200k cells): a (2,3) torus knot of about
+    2 * n_seg * n_ring triangles, DiffuseMetal(400), a ground sphere and a
+    sphere light -> (Scene, Camera) for cfg's size on `device`."""
+    from raysnail_tpu_torch import ir
+    from raysnail_tpu_torch.camera import build_camera
+    from raysnail_tpu_torch.scene import SceneBuilder
+    from raysnail_tpu_torch.scenes.meshes import torus_knot
+
+    v, f, n = torus_knot(n_seg=n_seg, n_ring=n_ring)
+    b = SceneBuilder()
+    b.add(ir.Mesh(vertices=v, indices=f, normals=n,
+                  material=ir.DiffuseMetal(400.0, ir.Constant((0.8, 0.6, 0.3)))))
+    b.add(ir.Sphere((0, -1001.3, 0), 1000.0, ir.Lambertian(ir.Constant((0.4, 0.4, 0.45)))))
+    b.add(ir.Sphere((4, 6, 3), 1.5, ir.DiffuseLight(ir.Constant((1.0, 0.95, 0.9)), 8.0)),
+          light=True)
+    b.set_background((0.05, 0.05, 0.08), (0.1, 0.12, 0.2))
+    cam = build_camera(look_from=(0, 1.5, 4), look_at=(0, 0, 0), fov=45,
+                       width=cfg.width, height=cfg.height, device=device)
+    return b.compile(cfg.dtype, device), cam
+
+
+def golden_configs(device):
+    """name -> thunk returning (scene, camera, cfg, seed) on `device`, for
+    the anchors the port renders."""
+    from raysnail_tpu_torch import ir
+    from raysnail_tpu_torch.camera import build_camera
+    from raysnail_tpu_torch.config import RenderConfig
+    from raysnail_tpu_torch.scene import SceneBuilder
+    from raysnail_tpu_torch.scenes import book1
+    from raysnail_tpu_torch.sdl.driver import build_scene
+
+    out = {}
+
+    def sdl_entry():
+        cfg = RenderConfig(width=96, height=64, samples=4, max_depth=8)
+        scene, cam = build_scene(os.path.join(REPO, "sdl", "example.sdl"), cfg, device)
+        return scene, cam, cfg, 7
+
+    out["example.sdl"] = sdl_entry
+
+    def mesh_entry():
+        cfg = RenderConfig(width=96, height=64, samples=4, max_depth=4)
+        return (*mesh_scene(cfg, device), cfg, 7)
+
+    out["mesh"] = mesh_entry
+
+    def book1_spherebvh_entry():
+        # the book1 balls forced through the BVH kernel's sphere kind
+        cfg = RenderConfig(width=64, height=36, samples=4, max_depth=4, sphere_bvh="force")
+        return (book1.balls_scene(7).compile(cfg.dtype, device),
+                book1.balls_camera(cfg.width, cfg.height, device=device), cfg, 7)
+
+    out["book1-spherebvh"] = book1_spherebvh_entry
+
+    def boxfield_entry():
+        # a 144-box field forced through the BVH kernel's box kind
+        cfg = RenderConfig(width=64, height=40, samples=4, max_depth=4, box_bvh="force")
+        b = SceneBuilder()
+        gm = ir.Lambertian(ir.Constant((0.48, 0.83, 0.53)))
+        rng = np.random.default_rng(5)
+        for i in range(12):
+            for j in range(12):
+                b.add(ir.Box((-6.0 + i, 0.0, -6.0 + j),
+                             (-5.0 + i, 0.1 + 2.0 * rng.random(), -5.0 + j), gm))
+        b.add(ir.Sphere((0, 6, 0), 1.0, ir.DiffuseLight(ir.Constant((1.0, 1.0, 1.0)), 5.0)),
+              light=True)
+        cam = build_camera(look_from=(0, 4, 9), look_at=(0, 0, 0), fov=50,
+                           width=cfg.width, height=cfg.height, device=device)
+        return b.compile(cfg.dtype, device), cam, cfg, 7
+
+    out["boxfield-kernel"] = boxfield_entry
+
+    def mesh_binned_entry():
+        # the mesh scene forced through the kernel with entry-octant binning
+        cfg = RenderConfig(width=96, height=64, samples=4, max_depth=4,
+                           mesh_pallas="force", mesh_bin="entry")
+        return (*mesh_scene(cfg, device), cfg, 7)
+
+    out["mesh-binned"] = mesh_binned_entry
+    return out
+
+
+def render_anchor(name: str, device="cpu") -> np.ndarray:
+    from raysnail_tpu_torch.render import render
+
+    scene, camera, cfg, seed = golden_configs(device)[name]()
+    return render(scene, camera, cfg, seed=seed)
+
+
+def anchor_stats(img: np.ndarray) -> dict:
+    """Block-mean thumbnail + global stats for one render."""
+    h, w, _ = img.shape
+    hb, wb = h // BLOCK, w // BLOCK
+    thumb = img[:hb * BLOCK, :wb * BLOCK].reshape(hb, BLOCK, wb, BLOCK, 3).mean(axis=(1, 3))
+    return {"thumb": thumb.astype(np.float32),
+            "mean": img.mean(axis=(0, 1)).astype(np.float32),
+            "std": img.std(axis=(0, 1)).astype(np.float32)}
+
+
+def load_golden() -> dict:
+    """-> {name: stats dict} from the committed archive."""
+    data = np.load(GOLDEN_PATH)
+    names = sorted({k.split("/")[0] for k in data.files})
+    return {n: {f: data[f"{n}/{f}"] for f in ("thumb", "mean", "std")} for n in names}
+
+
+def check_anchor(name: str, golden: dict, device="cpu") -> dict:
+    """Render `name` on `device` and hold it against its committed stats
+    within THUMB_ATOL and MEAN_ATOL. -> {"dthumb", "dmean"}; raises
+    AssertionError on drift."""
+    fresh = anchor_stats(render_anchor(name, device))
+    ref = golden[name]
+    assert fresh["thumb"].shape == ref["thumb"].shape, (
+        f"{name}: thumbnail shape {fresh['thumb'].shape} vs {ref['thumb'].shape}")
+    dthumb = float(np.abs(fresh["thumb"] - ref["thumb"]).max())
+    dmean = float(np.abs(fresh["mean"] - ref["mean"]).max())
+    assert dmean <= MEAN_ATOL, f"{name}: global mean drifted by {dmean} (> {MEAN_ATOL})"
+    assert dthumb <= THUMB_ATOL, f"{name}: thumbnail drifted by {dthumb} (> {THUMB_ATOL})"
+    return {"dthumb": dthumb, "dmean": dmean}

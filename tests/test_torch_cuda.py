@@ -6,16 +6,21 @@ without JAX; tests/conftest.py imports JAX, so run it there with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerance: none. The sphere kernel is built with -fmad=false, so it rounds
-every product and sum as the plain version's separate elementwise kernels
-do: t bit-equal, idx equal.
+Tolerance: none. The kernels are built with -fmad=false, so they round
+every product and sum as their plain versions' separate elementwise kernels
+do: the sphere sweep's t bit-equal and idx equal; the BVH traversal's t and
+every attribute bit-equal, so the same winner on every ray, ties included.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from raysnail_tpu_torch import ir
+from raysnail_tpu_torch.ops import bvh_traverse as bt
 from raysnail_tpu_torch.ops import sphere_min_t as smt
+from raysnail_tpu_torch.scene import SceneBuilder
+from raysnail_tpu_torch.scenes.meshes import torus_knot
 
 TMIN, TMAX = 1e-3, 1e30
 
@@ -78,3 +83,75 @@ def test_sphere_kernel_checks_its_inputs(cuda_device):
         smt.sphere_min_t(o, d, c, r2.cpu(), act, TMIN, TMAX)  # mixed devices
     with pytest.raises(ValueError):
         smt.sphere_min_t(o, d, c, r2, act.float(), TMIN, TMAX)
+
+
+def bvh_case(kind, seed, n_rays, device):
+    """A packed group of the kind, compiled by the port on `device`, and
+    rays: random origins and directions, a finite t_cap on a third of them,
+    dead lanes (t_cap = -1) on a tenth."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    mat = ir.Lambertian(ir.Constant((0.5, 0.5, 0.5)))
+    if kind == "tri":
+        v, f, nrm = torus_knot(n_seg=200, n_ring=24)
+        b.add(ir.Mesh(vertices=v, indices=f, normals=nrm, material=mat))
+        group, prim, span = "triangles", "pk_tri", 3.0
+    elif kind == "box":
+        for i in range(12):
+            for j in range(12):
+                b.add(ir.Box((-6.0 + i, 0.0, -6.0 + j),
+                             (-5.0 + i, 0.1 + 2.0 * rng.random(), -5.0 + j), mat))
+        group, prim, span = "boxes", "pk_box", 8.0
+    else:
+        for c in rng.uniform(-20, 20, (8192, 3)):
+            b.add(ir.Sphere(tuple(c), float(rng.uniform(0.2, 0.6)), mat))
+        group, prim, span = "spheres", "pk_sph", 25.0
+    g = getattr(b.compile(device=device).arrays, group)
+    o = rng.uniform(-span, span, (n_rays, 3)).astype(np.float32)
+    if kind == "box":  # a sixth start inside box (0, 0) of the grid
+        o[: n_rays // 6] = rng.uniform(-5.9, -5.1, (n_rays // 6, 3))
+        o[: n_rays // 6, 1] = rng.uniform(0.01, 0.09, n_rays // 6)
+    d = rng.standard_normal((n_rays, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    cap = np.full(n_rays, 1e30, np.float32)
+    cap[: n_rays // 3] = rng.uniform(0.5, span, n_rays // 3)
+    cap[n_rays // 3: n_rays // 3 + n_rays // 10] = -1.0
+
+    def cols(a):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a[:, i])).to(device)
+                     for i in range(3))
+
+    return (cols(o), cols(d), torch.from_numpy(cap).to(device), g.pk_bb, g.pk_links,
+            getattr(g, prim))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tri", "box", "sphere"])
+def test_bvh_kernel_matches_plain(cuda_device, kind):
+    args = bvh_case(kind, 3, 20_011, cuda_device)
+    before = dict(bt.bvh_traverse.launches)
+    out = bt.bvh_traverse(*args, TMIN, TMAX, kind=kind)
+    after = dict(bt.bvh_traverse.launches)
+    ref = bt.bvh_traverse_plain(*args, TMIN, TMAX, kind=kind)
+    torch.cuda.synchronize()
+    assert after[kind] == before[kind] + 1
+    assert bt.bvh_traverse.launches == after  # the plain version launches nothing
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    t, cap = out[0], args[2]
+    assert int((t < 1e30).sum()) > 1000
+    assert bool((t[cap <= 0] == 1e30).all())
+
+
+@pytest.mark.cuda
+def test_bvh_kernel_checks_its_inputs(cuda_device):
+    o, d, cap, bb, links, prim = bvh_case("sphere", 4, 1000, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        bt.bvh_traverse(tuple(a[::2] for a in o), d, cap, bb, links, prim, TMIN, TMAX,
+                        kind="sphere")
+    with pytest.raises(ValueError):
+        bt.bvh_traverse(o, d, cap.double(), bb, links, prim, TMIN, TMAX, kind="sphere")
+    with pytest.raises(ValueError):
+        bt.bvh_traverse(o, d, cap, bb, links.cpu(), prim, TMIN, TMAX, kind="sphere")
+    with pytest.raises(ValueError, match="pk_prim"):
+        bt.bvh_traverse(o, d, cap, bb, links, prim, TMIN, TMAX, kind="tri")

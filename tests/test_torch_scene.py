@@ -34,7 +34,8 @@ PORT = os.path.join(REPO, "raysnail_tpu_torch")
 SDL_FILES = sorted(glob.glob(os.path.join(REPO, "sdl", "*.sdl")))
 
 # the framework-free host modules the port carries as copies
-COPIES = ["ir.py", "geometry/transforms.py", "sdl/parser.py"]
+COPIES = ["ir.py", "geometry/transforms.py", "sdl/parser.py", "accel/bvh.py",
+          "accel/native/bvh_builder.cpp", "io/obj.py", "scenes/meshes.py"]
 
 
 @pytest.mark.parametrize("path", COPIES)
