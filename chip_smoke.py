@@ -7,28 +7,47 @@ It drives `raysnail_tpu_torch` (never the JAX package) through these phases
 and exits non-zero if any fails:
 
   1. device   require CUDA; print the card's name and power limit
-  2. build    build every kernel of the render paths from csrc/ with nvcc,
-              and the host BVH builder with g++, all started together; the
-              seconds, and each kernel's registers and spills (-Xptxas -v)
+  2. build    build every kernel of the render paths from csrc/ with nvcc
+              (sphere_min_t.cu, bvh_traverse.cu, bvh_packet.cu), and the host
+              BVH builder with g++, all started together; the seconds, and
+              each kernel's registers and spills (-Xptxas -v)
   3. kernels  each kernel against its plain PyTorch version on the card, at
-              the render paths' shapes and at stress shapes; CUDA-event times
+              the render paths' shapes and at stress shapes; CUDA-event
+              times. The packet kernel: tri, tri_mxu, box and sphere, bit for
+              bit against the plain version, then `stream` and `two_level`,
+              alone and together, bit for bit against the kernel with both
+              off; tri_mxu's t against tri's within MXU_RTOL on all but
+              MXU_EDGE_SHARE of the rays that both hit
   4. golden   the anchors example.sdl, mesh, mesh-binned, boxfield-kernel
               and book1-spherebvh on the card, against the committed
-              tests/golden/golden.npz, with the kernel launches of each
+              tests/golden/golden.npz, with the kernel launches of each; then
+              the mesh, box and sphere anchors forced through the packet
+              kernel in every (kind, stream, two_level) mode, each against
+              its anchor's statistics
   5. main     the canonical frame, example.sdl at 800x500@64spp (a warm-up
-              through the CLI, then a timed run of the same calls); then the
+              through the CLI, then a timed run of the same calls); the
               mesh-200k frame, a 204,800-triangle knot at 320x200@16spp,
-              depth 6 (a warm-up, then timed with "entry" binning and with
-              none); then the 9,600-triangle mesh+arealight frame. Each run
-              reads the kernel launch counts it made.
+              depth 6, through the per-ray kernel (with "entry" binning and
+              with none) and through the packet kernel (tri, tri with
+              two_level, tri_mxu, tri_mxu with stream), and once through the
+              tile-ordered sample-step path (render_sums), held against the
+              frame step's image; the mesh-800k frame, 819,200 triangles,
+              whose leaf blocks turn `stream` on by the auto rule and whose
+              tree keeps one node order, with the packet kernel held against
+              its plain version on 8,192 of its primary rays; the
+              9,600-triangle mesh+arealight frame; a passes=2 render of
+              example.sdl at 800x500@16spp. Each run reads the kernel launch
+              counts it made.
   6. profile  (only with --profile) torch.profiler: the device time of one
               call of each traversal kind and of its plain version; over one
-              mesh-200k frame, device time by kernel, the traversal
-              kernel's share and the device's busy share
+              mesh-200k frame per configuration and the mesh-800k frame,
+              device time by kernel, the traversal kernels' share and the
+              device's busy share
 
-The last two lines are the kernels' JSON record and
-{"ok": true, "device": {...}}. Without CUDA it exits non-zero before
-printing any result.
+The last two lines are the kernels' JSON record (with each kernel's bound:
+the least time the card could take for the bytes and the FP32 operations
+that this run's rays needed) and {"ok": true, "device": {...}}. Without CUDA
+it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -49,10 +68,43 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SCENE = os.path.join(ROOT, "sdl", "example.sdl")
 WIDTH, HEIGHT, SAMPLES = 800, 500, 65       # the canonical command's frame
 MESH_W, MESH_H, MESH_SPP, MESH_DEPTH, MESH_SEED = 320, 200, 16, 6, 1  # bench.py:220-238
+KNOT_200K, KNOT_800K, KNOT_AREA = (1600, 64), (6400, 64), (200, 24)  # (n_seg, n_ring)
 TIMING_RUNS = 20
 PLAIN_RUNS = 3                               # the plain BVH walk takes up to seconds
 ANCHORS = ("example.sdl", "mesh", "mesh-binned", "boxfield-kernel", "book1-spherebvh")
 BIG = 1e30
+SUMS_ATOL = 1e-3                             # render_sums' image against the frame step's
+PASSES_SAMPLES = 16                          # the passes=2 frame's requested spp
+# the card's published peaks (H100 SXM): device memory bytes/s, FP32 FLOP/s
+# outside the tensor cores
+HBM_BYTES_PER_S, FP32_FLOPS = 3.35e12, 67e12
+# FP32 operations of one (ray, primitive) test per leaf kind, of one (ray,
+# node) slab test, and of one (ray, sphere) test of sphere_min_t, counted
+# from the kernels' sources (compares included)
+PAIR_FLOPS = {"tri": 55, "tri_mxu": 88, "box": 32, "sphere": 27}
+NODE_FLOPS = 22
+
+
+def bound(n_bytes: float, n_flops: float) -> dict:
+    """The least milliseconds the card could take: the larger of the bytes
+    over the memory rate and the operations over the FP32 rate."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / FP32_FLOPS * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def bvh_bound(kind: str, n: int, n_hit: int, stats: dict) -> dict:
+    """Bound of one traversal from what its rays needed (the plain version's
+    count): 13 words of ray input and output per ray, each touched node's
+    bounds and links once, of each touched leaf block the rows that the
+    sweep reads once, and the winner's attribute words per ray that hit; a
+    slab test per (ray, node) and 128 primitive tests per (ray, leaf) sweep."""
+    from raysnail_tpu_torch.ops.bvh_traverse import ATTR_WORDS, STAGED_FLOATS
+
+    n_bytes = (n * 13 * 4 + stats["nodes"] * 48 + stats["leaves"] * STAGED_FLOATS[kind] * 4
+               + n_hit * ATTR_WORDS[kind] * 4)
+    return bound(n_bytes, stats["node_tests"] * NODE_FLOPS
+                 + stats["sweeps"] * 128 * PAIR_FLOPS[kind])
 
 
 def phase(name: str, msg: str):
@@ -143,7 +195,8 @@ def check_bvh_kernel(kind, args, t_min, t_max, label: str, time_it: bool):
     out = bt.bvh_traverse(*args, t_min, t_max, kind=kind)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    ref = bt.bvh_traverse_plain(*args, t_min, t_max, kind=kind)
+    stats = {}
+    ref = bt.bvh_traverse_plain(*args, t_min, t_max, kind=kind, stats=stats)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     err = float((out[0] - ref[0]).abs().max())
@@ -152,7 +205,8 @@ def check_bvh_kernel(kind, args, t_min, t_max, label: str, time_it: bool):
     n_hit = int((t < BIG).sum())
     dead_ok = bool((t[cap <= 0] == BIG).all()) and all(
         bool((a[cap <= 0] == 0).all()) for a in out[1:])
-    res = {"max_abs_err": err, "equal": all(same), "hits": n_hit}
+    res = {"max_abs_err": err, "equal": all(same), "hits": n_hit,
+           **bvh_bound(kind, args[0][0].shape[0], n_hit, stats)}
     if time_it:
         res["ms"] = time_ms(lambda: bt.bvh_traverse(*args, t_min, t_max, kind=kind))
         res["plain_ms"] = time_ms(
@@ -163,13 +217,73 @@ def check_bvh_kernel(kind, args, t_min, t_max, label: str, time_it: bool):
           f"M={args[3].shape[1]} nodes x{args[3].shape[0]} orders, hits={n_hit}, "
           f"dead={int((cap <= 0).sum())}, capped={int(((cap > 0) & (cap < BIG)).sum())}; "
           f"max|dt|={err!r}, outputs equal {same}, dead lanes ok {dead_ok}; first call "
-          f"{t1 - t0:.3f} s, plain {t2 - t1:.3f} s"
+          f"{t1 - t0:.3f} s, plain {t2 - t1:.3f} s; needed per ray: {stats}, bound "
+          f"{res['bound_ms']!r} ms by {res['bound_by']}"
           + (f"; kernel {res['ms']!r} ms (median of {TIMING_RUNS}), plain "
              f"{res['plain_ms']!r} ms (median of {PLAIN_RUNS})" if time_it else ""))
     if not all(same) or err != 0.0 or not dead_ok or n_hit == 0:
         raise AssertionError(f"bvh_traverse {kind} {label}: kernel disagrees with the "
                              f"plain version (max|dt|={err}, equal={same}, dead ok "
                              f"{dead_ok}, hits {n_hit})")
+    return res
+
+
+MODES = ((False, False), (True, False), (False, True), (True, True))  # (stream, two_level)
+# tri_mxu's t against tri's on rays that both hit: within MXU_RTOL on all but
+# MXU_EDGE_SHARE of them (rays on a triangle's edge, where the two solvers'
+# roundings of beta and gamma pick different triangles)
+MXU_RTOL, MXU_EDGE_SHARE = 1e-3, 1e-3
+
+
+def check_packet_kernel(kind, args, cut, t_min, t_max, label: str, time_it: bool):
+    """The packet kernel of `kind` against its plain version (packet=True) on
+    the same inputs: t and every attribute bit-equal; then stream and
+    two_level, alone and together, bit-equal to the kernel with both off.
+    -> {"stats", "plain_ms", "err", "ms": {(stream, two_level): ms}, "out"}."""
+    from raysnail_tpu_torch.ops import bvh_traverse as bt
+
+    before = dict(bt.bvh_traverse.launches)
+    cbb, crange = cut
+    call = lambda s, tl: bt.bvh_traverse(*args, t_min, t_max, kind=kind, packet=True,
+                                         stream=s, two_level=tl, cbb=cbb, crange=crange)
+    t0 = time.perf_counter()
+    base = call(False, False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stats = {}
+    ref = bt.bvh_traverse_plain(*args, t_min, t_max, kind=kind, packet=True, stats=stats)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    err = float((base[0] - ref[0]).abs().max())
+    same = [bool(torch.equal(a, b)) for a, b in zip(base, ref)]
+    t, cap = base[0], args[2]
+    n_hit = int((t < BIG).sum())
+    dead_ok = bool((t[cap <= 0] == BIG).all()) and all(
+        bool((a[cap <= 0] == 0).all()) for a in base[1:])
+    modes_same = {}
+    for mode in MODES[1:]:
+        out = call(*mode)
+        torch.cuda.synchronize()
+        modes_same[mode] = all(bool(torch.equal(a, b)) for a, b in zip(out, base))
+    res = {"stats": stats, "plain_ms": (t2 - t1) * 1e3, "err": err, "ms": {}, "out": base,
+           "hits": n_hit, **bvh_bound(kind, args[0][0].shape[0], n_hit, stats)}
+    if time_it:
+        for mode in MODES:
+            res["ms"][mode] = time_ms(lambda: call(*mode))
+    bt.bvh_traverse.launches = before  # comparison launches are not the main path's
+    n = args[0][0].shape[0]
+    phase("kernels", f"packet {kind} {label}: N={n} B={args[5].shape[0]} blocks "
+          f"M={args[3].shape[1]} nodes x{args[3].shape[0]} orders, hits={n_hit}, "
+          f"dead={int((cap <= 0).sum())}; vs plain max|dt|={err!r}, outputs equal {same}, "
+          f"dead lanes ok {dead_ok}; (stream, two_level) modes bit-equal to mode-off: "
+          f"{modes_same}; first call {t1 - t0:.3f} s, plain (one run) {t2 - t1:.3f} s; "
+          f"needed per ray: {stats}, bound {res['bound_ms']!r} ms by {res['bound_by']}"
+          + (f"; kernel ms by (stream, two_level), median of {TIMING_RUNS}: {res['ms']}"
+             if time_it else ""))
+    if not all(same) or err != 0.0 or not dead_ok or n_hit == 0 or not all(modes_same.values()):
+        raise AssertionError(f"packet {kind} {label}: kernel disagrees (vs plain max|dt|="
+                             f"{err}, equal={same}, dead ok {dead_ok}, hits {n_hit}, modes "
+                             f"{modes_same})")
     return res
 
 
@@ -230,6 +344,10 @@ def frame(scene, camera, cfg, seed, counters):
     return img, seconds, iterations, launches, torch.cuda.max_memory_allocated()
 
 
+def nonzero(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
 class Counters:
     """Every kernel's launch count: reset to 0 before a run, read after."""
 
@@ -273,7 +391,9 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     from raysnail_tpu_torch.ops import bvh_traverse as bt
     from raysnail_tpu_torch.ops import sphere_min_t as smt
     from raysnail_tpu_torch.geometry import spheres as sphlib
-    from raysnail_tpu_torch.render import render
+    from raysnail_tpu_torch import render as render_mod
+    from raysnail_tpu_torch import scene as scene_mod
+    from raysnail_tpu_torch.render import render, render_passes
     from raysnail_tpu_torch.scene import SceneBuilder
     from raysnail_tpu_torch import ir
     from raysnail_tpu_torch.sdl.driver import build_scene
@@ -283,6 +403,7 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     t0 = time.time()
     jobs = {"sphere_min_t.cu": lambda: smt.build(verbose=True),
             "bvh_traverse.cu": lambda: bt.build(verbose=True),
+            "bvh_packet.cu": lambda: bt.build_packet(verbose=True),
             "bvh_builder.cpp": native.build}
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {name: pool.submit(job) for name, job in jobs.items()}
@@ -323,7 +444,7 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     # bvh_traverse, kind "tri": the mesh-200k scene (its host compile is timed)
     mcfg = RenderConfig(width=MESH_W, height=MESH_H, samples=MESH_SPP, max_depth=MESH_DEPTH)
     t0 = time.perf_counter()
-    mscene, mcam = golden.mesh_scene(mcfg, device, n_seg=1600, n_ring=64)
+    mscene, mcam = golden.mesh_scene(mcfg, device, *KNOT_200K)
     torch.cuda.synchronize()
     compile_s = time.perf_counter() - t0
     tri = mscene.arrays.triangles
@@ -342,7 +463,8 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     # (b) divergent rays from inside and around the knot's bounds
     root = tri.pk_bb[0, 0, :6]
     o, d, cap = random_rays(gen, 16_384, root[:3] - 1.0, root[3:] + 1.0, device)
-    check_bvh_kernel("tri", (cols(o), cols(d), cap, *pk_tri), mcfg.t_min, mcfg.t_max,
+    div_rays = (cols(o), cols(d), cap)
+    check_bvh_kernel("tri", (*div_rays, *pk_tri), mcfg.t_min, mcfg.t_max,
                      "(b) divergent rays", time_it=False)
 
     # kind "box": the 144-box field of boxfield-kernel; a sixth of the rays
@@ -369,18 +491,57 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     res_sph = check_bvh_kernel("sphere", cases["sphere"], mcfg.t_min, mcfg.t_max,
                                "8,192 random spheres", time_it=True)
 
+    # the packet kernel: every kind on the same cases, with stream and
+    # two_level off and on; tri_mxu on the same mesh compiled in its format
+    t0 = time.perf_counter()
+    xscene, _ = golden.mesh_scene(mcfg, device, n_seg=KNOT_200K[0], n_ring=KNOT_200K[1],
+                                  mesh_solver="mxu")
+    torch.cuda.synchronize()
+    xtri = xscene.arrays.triangles
+    phase("kernels", f"mesh-200k host compile in the tri_mxu format "
+          f"{time.perf_counter() - t0:.3f} s: pk_tri {tuple(xtri.pk_tri.shape)}")
+    if not (torch.equal(xtri.pk_bb, tri.pk_bb) and torch.equal(xtri.pk_cbb, tri.pk_cbb)):
+        raise AssertionError("the two mesh formats do not share one tree")
+    cases["tri_mxu"] = (*cases["tri"][:3], xtri.pk_bb, xtri.pk_links, xtri.pk_tri)
+    cuts = {"tri": (tri.pk_cbb, tri.pk_crange), "tri_mxu": (xtri.pk_cbb, xtri.pk_crange),
+            "box": (bx.pk_cbb, bx.pk_crange), "sphere": (sg.pk_cbb, sg.pk_crange)}
+    labels = {"tri": "mesh-200k primary rays", "tri_mxu": "mesh-200k primary rays",
+              "box": "144-box field, inside starts", "sphere": "8,192 random spheres"}
+    res_pkt = {k: check_packet_kernel(k, cases[k], cuts[k], mcfg.t_min, mcfg.t_max,
+                                      labels[k], time_it=True) for k in cases}
+    for k, pk in (("tri", pk_tri), ("tri_mxu", (xtri.pk_bb, xtri.pk_links, xtri.pk_tri))):
+        check_packet_kernel(k, (*div_rays, *pk), cuts[k], mcfg.t_min, mcfg.t_max,
+                            "divergent rays", time_it=False)
+    ta, tb = res_pkt["tri"]["out"][0], res_pkt["tri_mxu"]["out"][0]
+    both = (ta < BIG) & (tb < BIG)
+    rel = ((ta - tb).abs() / ta)[both]
+    mxu_rel = float(rel[rel <= MXU_RTOL].max())
+    mxu_edge = int((rel > MXU_RTOL).sum())
+    mxu_mask = int(((ta < BIG) != (tb < BIG)).sum())
+    # against the per-ray kernel: the same rules, another octant for some rays
+    tr = bt.bvh_traverse(*cases["tri"], mcfg.t_min, mcfg.t_max, kind="tri", packet=False)[0]
+    counters.reset()
+    phase("kernels", f"tri_mxu vs tri, packet kernel, {int(both.sum())} rays that both hit: "
+          f"max rel |dt| {mxu_rel!r} on all but {mxu_edge} edge rays (rel |dt| > {MXU_RTOL}; "
+          f"at most {MXU_EDGE_SHARE} of them allowed), {mxu_mask} rays hit in one only; "
+          f"packet tri vs per-ray tri: {int((ta != tr).sum())} of {ta.numel()} rays differ in t")
+    if mxu_edge > MXU_EDGE_SHARE * int(both.sum()) or mxu_mask > MXU_EDGE_SHARE * ta.numel():
+        raise AssertionError("tri_mxu disagrees with tri beyond its stated tolerance")
+
     # 4. golden anchors on the card ------------------------------------------
     ref = golden.load_golden()
     anchor_launches = {}
-    for name in ANCHORS:
+    for name in (*ANCHORS, *golden.forced_mode_configs(device)):
         counters.reset()
         res = golden.check_anchor(name, ref, device)
         anchor_launches[name] = counters.read()
         phase("golden", f"{name}: max|d thumb|={res['dthumb']!r} (<= {golden.THUMB_ATOL}), "
               f"max|d mean|={res['dmean']!r} (<= {golden.MEAN_ATOL}); launches "
-              f"{anchor_launches[name]}")
+              f"{nonzero(anchor_launches[name])}")
     want = {"mesh": "bvh_traverse/tri", "mesh-binned": "bvh_traverse/tri",
-            "boxfield-kernel": "bvh_traverse/box", "book1-spherebvh": "bvh_traverse/sphere"}
+            "boxfield-kernel": "bvh_traverse/box", "book1-spherebvh": "bvh_traverse/sphere",
+            **{name: "bvh_traverse/" + name.split("/", 1)[1]
+               for name in golden.forced_mode_configs(device)}}
     for name, key in want.items():
         if anchor_launches[name][key] == 0:
             raise AssertionError(f"anchor {name} did not launch {key}")
@@ -402,7 +563,7 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     spp = cfg.effective_samples
     phase("main", f"example.sdl {WIDTH}x{HEIGHT}@{spp}spp on {card}: {seconds!r} s, "
           f"{WIDTH * HEIGHT * spp / seconds / 1e6!r} Mprimary-rays/s, {iterations} shade "
-          f"iterations, launches {launches}, peak {peak} B allocated; image mean "
+          f"iterations, launches {nonzero(launches)}, peak {peak} B allocated; image mean "
           f"{img.mean()!r}, std {img.std()!r}")
     chunks = spp // integrator.chunk_width(spp, cfg.chunk_cap)
     smt_launches = launches["sphere_min_t"]
@@ -410,68 +571,215 @@ def run(device: torch.device, card: str, profile: bool) -> list:
         raise AssertionError(f"sphere_min_t ran {smt_launches} times in {iterations} shade "
                              "iterations: the render did not go through the kernel")
 
-    # mesh-200k at full size: a warm-up frame through render(), then timed
+    # passes=2 through render_passes: the full frame step, then the noisy
+    # pixels again through the tile-ordered sample step
+    pcfg = cfg.replace(samples=PASSES_SAMPLES, passes=2)
+    seen = []
+    counters.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = render_passes(scene, camera, pcfg, seed=0,
+                        progress=lambda done, total, im: seen.append((done, total)))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counters.read()
+    first = render(scene, camera, pcfg, seed=0)
+    redone = int((np.abs(img - first).max(axis=-1) > 0).sum())
+    phase("main", f"example.sdl {WIDTH}x{HEIGHT}@{pcfg.effective_samples}spp passes=2 "
+          f"through render_passes on {card}: {seconds!r} s, progress calls {seen}, "
+          f"{redone} pixels changed by pass 2, launches {nonzero(launches)}; image mean "
+          f"{img.mean()!r}, std {img.std()!r}")
+    if (len(seen) != 2 or redone == 0 or not np.isfinite(img).all()
+            or img.shape != (HEIGHT, WIDTH, 3)):
+        raise AssertionError("render_passes(passes=2) did not run its second pass")
+
+    # mesh-200k at full size: a warm-up frame through render(), then one
+    # timed frame per configuration, per-ray and packet kernels side by side
     t0 = time.perf_counter()
     render(mscene, mcam, mcfg, seed=MESH_SEED)
     torch.cuda.synchronize()
     phase("main", f"mesh-200k warm-up frame through render() in "
           f"{time.perf_counter() - t0:.3f} s")
+    packet_cfg = mcfg.replace(mesh_bin="never", bvh_packet="force")
+    # (scene, config, the traversal's call-time switches as
+    # golden.traversal_env sets them, the launch key the frame must count)
+    mesh_cfgs = {
+        "per-ray, entry binning": (mscene, mcfg, {}, "bvh_traverse/tri"),
+        "per-ray": (mscene, mcfg.replace(mesh_bin="never"), {}, "bvh_traverse/tri"),
+        "packet tri": (mscene, packet_cfg, {}, "bvh_traverse/packet/tri"),
+        "packet tri, two_level": (mscene, packet_cfg, {"two_level": True},
+                                  "bvh_traverse/packet/tri+two_level"),
+        # the tri_mxu blocks of this mesh (93.6 MB) are above the stream
+        # threshold, so the auto rule streams them: the resident read is forced
+        "packet tri_mxu": (xscene, packet_cfg, {"stream": False},
+                           "bvh_traverse/packet/tri_mxu"),
+        "packet tri_mxu, stream": (xscene, packet_cfg, {},
+                                   "bvh_traverse/packet/tri_mxu+stream"),
+    }
     mesh_runs = {}
-    for mode in ("entry", "never", "entry"):
-        run_cfg = mcfg.replace(mesh_bin=mode) if mode == "never" else mcfg
-        routes = integrator.kernel_routes(mscene, mscene.arrays, run_cfg)
-        img, seconds, iterations, launches, peak = frame(mscene, mcam, run_cfg, MESH_SEED,
-                                                         counters)
-        mesh_runs.setdefault(routes.mesh_bin, []).append((seconds, iterations, launches))
-        phase("main", f"mesh-200k {MESH_W}x{MESH_H}@{MESH_SPP}spp depth {MESH_DEPTH} "
-              f"mesh_bin={routes.mesh_bin} on {card}: {seconds!r} s, "
+    for label, (sc, run_cfg, env, key) in mesh_cfgs.items():
+        with golden.traversal_env(**env):
+            img, seconds, iterations, launches, peak = frame(sc, mcam, run_cfg, MESH_SEED,
+                                                             counters)
+        mesh_runs[label] = (seconds, iterations, launches, img)
+        phase("main", f"mesh-200k {MESH_W}x{MESH_H}@{MESH_SPP}spp depth {MESH_DEPTH}, "
+              f"{label} on {card}: {seconds!r} s, "
               f"{MESH_W * MESH_H * MESH_SPP / seconds / 1e6!r} Mprimary-rays/s, "
-              f"{iterations} shade iterations, launches {launches}, peak {peak} B "
+              f"{iterations} shade iterations, launches {nonzero(launches)}, peak {peak} B "
               f"allocated, host compile {compile_s!r} s; image mean {img.mean()!r}, "
               f"std {img.std()!r}")
-        if launches["bvh_traverse/tri"] < iterations or launches["sphere_min_t"] < iterations:
-            raise AssertionError(f"mesh-200k: {launches} in {iterations} shade iterations: "
-                                 "the render did not go through the kernels")
-    tri_launches = mesh_runs["entry"][0][2]["bvh_traverse/tri"]
+        if launches[key] < iterations or launches["sphere_min_t"] < iterations:
+            raise AssertionError(f"mesh-200k, {label}: {nonzero(launches)} in {iterations} "
+                                 "shade iterations: the render did not go through the kernels")
+    tri_launches = mesh_runs["per-ray, entry binning"][2]["bvh_traverse/tri"]
+
+    # the sample-step path: the same frame through render_sums in tile order
+    px, py, inv = render_mod._tile_grid(packet_cfg)
+    counters.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sums = render_mod.render_sums(mscene, mcam, packet_cfg, MESH_SEED, px, py)
+    img = render_mod._to_image(sums, packet_cfg)[inv].reshape(MESH_H, MESH_W, 3)
+    seconds = time.perf_counter() - t0
+    launches = counters.read()
+    d_img = float(np.abs(img - mesh_runs["packet tri"][3]).max())
+    phase("main", f"mesh-200k through render_sums in tile order (packet tri) on {card}: "
+          f"{seconds!r} s, {MESH_W * MESH_H * MESH_SPP / seconds / 1e6!r} Mprimary-rays/s, "
+          f"launches {nonzero(launches)}; max |d image| against the frame step "
+          f"{d_img!r} (<= {SUMS_ATOL})")
+    if d_img > SUMS_ATOL or launches["bvh_traverse/packet/tri"] == 0:
+        raise AssertionError("render_sums disagrees with the frame step")
+
+    # mesh-800k: leaf blocks above the stream threshold, K = 1
+    t0 = time.perf_counter()
+    bscene8, bcam8 = golden.mesh_scene(mcfg, device, *KNOT_800K)
+    torch.cuda.synchronize()
+    compile8 = time.perf_counter() - t0
+    tri8 = bscene8.arrays.triangles
+    leaf_bytes = tri8.pk_tri.numel() * 4
+    img, seconds, iterations, launches, peak = frame(bscene8, bcam8, mcfg, MESH_SEED, counters)
+    seconds8 = seconds
+    phase("main", f"mesh-800k ({int((tri8.mat_id != -2).sum())} triangles, pk_bb "
+          f"{tuple(tri8.pk_bb.shape)}, leaf blocks {leaf_bytes} B > "
+          f"{bt.stream_bytes()} B) {MESH_W}x{MESH_H}@{MESH_SPP}spp depth {MESH_DEPTH}, "
+          f"first frame on {card}: {seconds!r} s, "
+          f"{MESH_W * MESH_H * MESH_SPP / seconds / 1e6!r} Mprimary-rays/s, {iterations} "
+          f"shade iterations, launches {nonzero(launches)}, peak {peak} B allocated, host "
+          f"compile {compile8!r} s; image mean {img.mean()!r}, std {img.std()!r}")
+    stream_launches = launches["bvh_traverse/packet/tri+stream"]
+    if leaf_bytes <= bt.stream_bytes() or stream_launches < iterations:
+        raise AssertionError("mesh-800k did not take the streamed packet kernel by the "
+                             "auto rule")
+    # the packet kernel at this frame's shape (one node order, 18,487 nodes,
+    # streamed leaves) against the plain version: 8,192 of its primary rays,
+    # 64 whole packets spread over the frame, some dead and some capped
+    ray8 = primary_rays(bcam8, MESH_W, MESH_H, mcfg.sqrt_spp, device)
+    o8, d8 = ray8.origin.to_array(), ray8.direction.to_array()
+    pick = (torch.arange(64, device=device)[:, None] * (MESH_W * MESH_H // 64)
+            + torch.arange(bt.PACKET, device=device)[None, :]).reshape(-1)
+    cap8 = torch.full((pick.numel(),), BIG, device=device)
+    cap8[::3] = torch.rand(cap8[::3].numel(), generator=gen, device=device) * 6.0 + 0.5
+    cap8[5::10] = -1.0
+    if tri8.pk_bb.shape[0] != 1:
+        raise AssertionError("mesh-800k's tree does not keep one node order")
+    res8 = check_packet_kernel("tri", (cols(o8[pick]), cols(d8[pick]), cap8, tri8.pk_bb,
+                                       tri8.pk_links, tri8.pk_tri),
+                               (tri8.pk_cbb, tri8.pk_crange), mcfg.t_min, mcfg.t_max,
+                               "mesh-800k primary rays, one node order", time_it=False)
+    if res8["hits"] < 100:
+        raise AssertionError(f"mesh-800k check: only {res8['hits']} rays hit")
+    # one streamed call of all its primary rays against the resident read
+    args8 = (cols(o8), cols(d8),
+             torch.full((MESH_W * MESH_H,), BIG, device=device), tri8.pk_bb, tri8.pk_links,
+             tri8.pk_tri)
+    call8 = lambda st: bt.bvh_traverse(*args8, mcfg.t_min, mcfg.t_max, kind="tri",
+                                       packet=True, stream=st)
+    same8 = all(bool(torch.equal(a, b)) for a, b in zip(call8(True), call8(False)))
+    ms8 = {st: time_ms(lambda: call8(st)) for st in (True, False)}
+    counters.reset()
+    phase("main", f"mesh-800k primary rays, packet tri: stream {ms8[True]!r} ms, resident "
+          f"read {ms8[False]!r} ms per call (median of {TIMING_RUNS}), outputs equal {same8}")
+    if not same8:
+        raise AssertionError("mesh-800k: the streamed call differs from the resident one")
 
     t0 = time.perf_counter()
-    ascene, acam = golden.mesh_scene(mcfg, device, n_seg=200, n_ring=24)
+    ascene, acam = golden.mesh_scene(mcfg, device, *KNOT_AREA)
     torch.cuda.synchronize()
     acompile = time.perf_counter() - t0
     img, seconds, iterations, launches, peak = frame(ascene, acam, mcfg, MESH_SEED, counters)
     phase("main", f"mesh+arealight (9,600 triangles) {MESH_W}x{MESH_H}@{MESH_SPP}spp, "
           f"first frame (no warm-up) on {card}: {seconds!r} s, "
           f"{MESH_W * MESH_H * MESH_SPP / seconds / 1e6!r} Mprimary-rays/s, {iterations} "
-          f"shade iterations, launches {launches}, peak {peak} B, host compile "
+          f"shade iterations, launches {nonzero(launches)}, peak {peak} B, host compile "
           f"{acompile!r} s; image mean {img.mean()!r}, std {img.std()!r}")
     if launches["bvh_traverse/tri"] < iterations:
         raise AssertionError("mesh+arealight did not go through the traversal kernel")
 
     if profile:
         profile_kernels(cases, mcfg.t_min, mcfg.t_max)
-        for mode, runs in mesh_runs.items():
-            profile_mesh_frame(mscene, mcam, mcfg.replace(mesh_bin=mode), runs[-1][0])
+        for label, (sc, run_cfg, env, _) in mesh_cfgs.items():
+            with golden.traversal_env(**env):
+                profile_mesh_frame(sc, mcam, run_cfg, f"mesh-200k, {label}",
+                                   mesh_runs[label][0])
+        profile_mesh_frame(bscene8, bcam8, mcfg, "mesh-800k", seconds8)
+        ucfg = mcfg.replace(mesh_bin="never")
+        _, useconds, _, _, _ = frame(bscene8, bcam8, ucfg, MESH_SEED, counters)
+        profile_mesh_frame(bscene8, bcam8, ucfg, "mesh-800k, unbinned", useconds)
+        # what the node cap costs mesh-800k: the same mesh with the cap lifted,
+        # so that its 18,487 nodes get the 8 front-to-back octant orders
+        cap0, scene_mod.OCTANT_CAP = scene_mod.OCTANT_CAP, 1 << 30
+        try:
+            oscene, _ = golden.mesh_scene(mcfg, device, *KNOT_800K)
+        finally:
+            scene_mod.OCTANT_CAP = cap0
+        otri = oscene.arrays.triangles
+        oargs = (*args8[:3], otri.pk_bb, otri.pk_links, otri.pk_tri)
+        oms = time_ms(lambda: bt.bvh_traverse(*oargs, mcfg.t_min, mcfg.t_max, kind="tri"))
+        _, oseconds, oiter, olaunches, _ = frame(oscene, bcam8, mcfg, MESH_SEED, counters)
+        phase("profile", f"mesh-800k with the node cap lifted, pk_bb {tuple(otri.pk_bb.shape)}: "
+              f"primary rays {oms!r} ms per call against {ms8[True]!r} ms with one order; "
+              f"frame {oseconds!r} s, {oiter} iterations, launches {nonzero(olaunches)}")
+        profile_mesh_frame(oscene, bcam8, mcfg, "mesh-800k, 8 octant orders", oseconds)
 
-    bvh = "raysnail_tpu_torch/csrc/bvh_traverse.cu"
-    replaces = "raysnail_tpu/ops/bvh_pallas.py:94"
-    return [
-        {"name": "sphere_min_t", "route": "cuda",
-         "source": "raysnail_tpu_torch/csrc/sphere_min_t.cu",
+    # the kernels' records: `launches` from a main-path run (a frame where one
+    # runs the kernel or mode, else its forced anchor render)
+    src = "raysnail_tpu_torch/csrc/"
+    tpu = "raysnail_tpu/ops/bvh_pallas.py:"
+    n_a, s_a = args_a[0][0].shape[0], args_a[3].shape[0]
+    records = [
+        {"name": "sphere_min_t", "route": "cuda", "source": src + "sphere_min_t.cu",
          "replaces": "raysnail_tpu/ops/sphere_pallas.py:30",
          "launches": smt_launches, "max_abs_err": smt_err,
-         "ms": res_a["ms"], "plain_ms": res_a["plain_ms"]},
-        {"name": "bvh_traverse/tri", "route": "cuda", "source": bvh, "replaces": replaces,
-         "launches": tri_launches, "max_abs_err": res_tri["max_abs_err"],
-         "ms": res_tri["ms"], "plain_ms": res_tri["plain_ms"]},
-        {"name": "bvh_traverse/box", "route": "cuda", "source": bvh, "replaces": replaces,
-         "launches": anchor_launches["boxfield-kernel"]["bvh_traverse/box"],
-         "max_abs_err": res_box["max_abs_err"], "ms": res_box["ms"],
-         "plain_ms": res_box["plain_ms"]},
-        {"name": "bvh_traverse/sphere", "route": "cuda", "source": bvh, "replaces": replaces,
-         "launches": anchor_launches["book1-spherebvh"]["bvh_traverse/sphere"],
-         "max_abs_err": res_sph["max_abs_err"], "ms": res_sph["ms"],
-         "plain_ms": res_sph["plain_ms"]},
-    ]
+         "ms": res_a["ms"], "plain_ms": res_a["plain_ms"],
+         **bound(n_a * 8 * 4 + s_a * 5 * 4, n_a * s_a * PAIR_FLOPS["sphere"])}]
+    per_ray = {"tri": (res_tri, tri_launches),
+               "box": (res_box, anchor_launches["boxfield-kernel"]["bvh_traverse/box"]),
+               "sphere": (res_sph, anchor_launches["book1-spherebvh"]["bvh_traverse/sphere"])}
+    for k, (res, n_launch) in per_ray.items():
+        records.append({"name": f"bvh_traverse/{k}", "route": "cuda",
+                        "source": src + "bvh_traverse.cu", "replaces": tpu + "94",
+                        "launches": n_launch, "max_abs_err": res["max_abs_err"],
+                        "ms": res["ms"], "plain_ms": res["plain_ms"],
+                        "bound_ms": res["bound_ms"], "bound_by": res["bound_by"]})
+    frame_launches = {label: run[2] for label, run in mesh_runs.items()}
+    frame_launches["mesh-800k"] = {"bvh_traverse/packet/tri+stream": stream_launches}
+    for k, res in res_pkt.items():
+        for stream, two_level in MODES:
+            key = "bvh_traverse/" + bt.launch_key(k, True, stream, two_level)
+            in_frames = max(run.get(key, 0) for run in frame_launches.values())
+            anchor = f"{golden.PACKET_ANCHORS[k]}/{key.split('/', 1)[1]}"
+            line = "413" if two_level else "519" if stream else "235" if k == "tri_mxu" else "94"
+            records.append({"name": key, "route": "cuda", "source": src + "bvh_packet.cu",
+                            "replaces": tpu + line,
+                            "launches": in_frames or anchor_launches[anchor][key],
+                            "max_abs_err": res["err"], "ms": res["ms"][(stream, two_level)],
+                            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                            "bound_by": res["bound_by"]})
+    for rec in records:
+        rec["library_ms"] = None  # no single PyTorch call computes any of these
+        if rec["launches"] == 0:
+            raise AssertionError(f"{rec['name']} was launched by no main-path run")
+    return records
 
 
 def _dev_us(e) -> float:
@@ -488,42 +796,44 @@ def _device_events(prof) -> list:
 
 
 def profile_kernels(cases: dict, t_min, t_max, repeats: int = 5):
-    """torch.profiler device time per call of each traversal kind (all kinds
-    in one session, `repeats` calls each) and of one call of its plain
-    version, on the inputs of phase 3."""
+    """torch.profiler device time per call of each traversal kind through the
+    per-ray kernel (tri, box, sphere) and the packet kernel (all four, modes
+    off), all under one profiler with `repeats` calls each, on the inputs of
+    phase 3."""
     from torch.profiler import ProfilerActivity, profile
 
     from raysnail_tpu_torch.ops import bvh_traverse as bt
 
-    def device_ms(fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        return _device_events(prof)
-
+    routes = [(kind, packet) for kind in cases for packet in (False, True)
+              if packet or kind in bt._PER_RAY_KINDS]
+    call = lambda kind, packet: bt.bvh_traverse(*cases[kind], t_min, t_max, kind=kind,
+                                                packet=packet, stream=False, two_level=False)
     before = dict(bt.bvh_traverse.launches)
-    for kind, args in cases.items():
-        bt.bvh_traverse(*args, t_min, t_max, kind=kind)  # warm-up
-    events = device_ms(lambda: [bt.bvh_traverse(*args, t_min, t_max, kind=kind)
-                                for kind, args in cases.items() for _ in range(repeats)])
+    for route in routes:
+        call(*route)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for route in routes:
+            for _ in range(repeats):
+                call(*route)
+        torch.cuda.synchronize()
     bt.bvh_traverse.launches = before  # profiling launches are not the main path's
-    for kind, args in cases.items():
-        tag = f"bvh_traverse_kernel<{bt._KIND_ID[kind]}>"
-        mine = [e for e in events if tag in e.key]
+    events = _device_events(prof)
+    for kind, packet in routes:
+        tag = (f"bvh_packet_kernel<{bt._KIND_ID[kind]}, false>" if packet
+               else f"bvh_traverse_kernel<{bt._KIND_ID[kind]}>")
+        mine = [e for e in events if tag in e.key.replace("(bool)0", "false")]
         calls = sum(e.count for e in mine)
         per_call = sum(_dev_us(e) for e in mine) / 1e3 / max(calls, 1)
-        plain = device_ms(lambda: bt.bvh_traverse_plain(*args, t_min, t_max, kind=kind))
-        phase("profile", f"bvh_traverse {kind}, N={args[0][0].shape[0]}: kernel "
-              f"{per_call!r} ms device time per call ({calls} calls seen); plain version "
-              f"{sum(_dev_us(e) for e in plain) / 1e3!r} ms device time in "
-              f"{sum(e.count for e in plain)} kernels")
+        phase("profile", f"{'packet' if packet else 'per-ray'} {kind}, "
+              f"N={cases[kind][0][0].shape[0]}: {per_call!r} ms device time per call "
+              f"({calls} calls seen)")
 
 
-def profile_mesh_frame(scene, camera, cfg, wall_s: float):
-    """torch.profiler over one mesh-200k frame with cfg's binning: device
-    time by kernel, the traversal kernel's share, and the busy share against
-    the unprofiled frame's wall time `wall_s`."""
+def profile_mesh_frame(scene, camera, cfg, label: str, wall_s: float):
+    """torch.profiler over one frame: device time by kernel, the traversal
+    kernels' share and time per launch, and the busy share against the
+    unprofiled frame's wall time `wall_s`."""
     from torch.profiler import ProfilerActivity, profile
 
     from raysnail_tpu_torch.render import make_frame_step
@@ -539,19 +849,18 @@ def profile_mesh_frame(scene, camera, cfg, wall_s: float):
     events = _device_events(prof)
     total = sum(_dev_us(e) for e in events)
     launches = sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel")
-    phase("profile", f"mesh-200k frame, mesh_bin={cfg.mesh_bin}, under the profiler: "
-          f"{iterations} iterations, "
+    phase("profile", f"{label}, under the profiler: {iterations} iterations, "
           f"{prof_wall:.3f} s wall, device time {total / 1e3:.3f} ms, "
           f"{launches} cudaLaunchKernel calls")
-    for e in sorted(events, key=_dev_us, reverse=True)[:20]:
+    for e in sorted(events, key=_dev_us, reverse=True)[:8]:
         phase("profile", f"  {_dev_us(e) / 1e3:10.3f} ms  {100 * _dev_us(e) / total:6.2f}%  "
               f"x{e.count:<7d} {e.key[:90]}")
-    bvh = sum(_dev_us(e) for e in events if "bvh_traverse_kernel" in e.key)
-    smt = sum(_dev_us(e) for e in events if "sphere_min_t_kernel" in e.key)
-    phase("profile", f"bvh_traverse kernel {bvh / 1e3:.3f} ms ({100 * bvh / total:.2f}% of "
-          f"device time), sphere_min_t {smt / 1e3:.3f} ms ({100 * smt / total:.2f}%); "
-          f"device busy {100 * total / 1e6 / wall_s:.2f}% of the unprofiled frame's "
-          f"{wall_s:.3f} s wall")
+    bvh = [e for e in events if "bvh_traverse_kernel" in e.key or "bvh_packet_kernel" in e.key]
+    bvh_us, bvh_n = sum(_dev_us(e) for e in bvh), sum(e.count for e in bvh)
+    phase("profile", f"{label}: traversal kernel {bvh_us / 1e3:.3f} ms "
+          f"({100 * bvh_us / total:.2f}% of device time) in {bvh_n} launches, "
+          f"{bvh_us / 1e3 / max(bvh_n, 1)!r} ms per launch; device busy "
+          f"{100 * total / 1e6 / wall_s:.2f}% of the unprofiled frame's {wall_s:.3f} s wall")
 
 
 if __name__ == "__main__":

@@ -6,6 +6,10 @@ output.png.
 --device picks where the render runs: `cuda` (the default) runs the
 hand-written kernels on the card; `cpu` runs their plain PyTorch versions,
 which is meant for tests.
+
+The traversal kernels' switches are the JAX package's environment variables:
+RAYSNAIL_MESH_SOLVER=mxu (read when the scene compiles),
+RAYSNAIL_BVH_TWO_LEVEL=1 and RAYSNAIL_BVH_STREAM_BYTES (read at each call).
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ def main(argv=None):
     ap.add_argument("--height", type=int, default=600)
     ap.add_argument("--samples", "-s", type=int, default=122)
     ap.add_argument("--passes", "-p", type=int, default=1,
-                    help="only 1 is ported so far")
+                    help="adaptive oversampling: passes after the first re-render "
+                         "only the pixels whose 5x5 noise reaches the threshold")
     ap.add_argument("--outfile", "-o", default="output.png")
     ap.add_argument("--depth", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)

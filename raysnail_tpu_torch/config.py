@@ -63,7 +63,13 @@ class RenderConfig:
     mesh_pallas: str = "auto"
     sphere_bvh: str = "auto"
     box_bvh: str = "auto"
-    path_regen: str = "auto"     # "auto" = the shuffled regeneration frame step
+    # the packet traversal kernel (ops.bvh_traverse): "auto" takes it when
+    # the call needs it (a "tri_mxu" mesh, stream by RAYSNAIL_BVH_STREAM_BYTES,
+    # two_level by RAYSNAIL_BVH_TWO_LEVEL), "force" always, "never" refuses
+    # such a call. A field of the port only: the JAX package has one kernel.
+    bvh_packet: str = "auto"
+    path_regen: str = "auto"     # "auto" = the shuffled regeneration frame step;
+                                 # "never" is not ported (the scan integrator, M7)
     mesh_sort: bool = False      # not ported, by decision (ROADMAP "Not to port")
     mesh_bin: str = "auto"       # ray binning ahead of the mesh kernel: "auto"
                                  # (= "entry" on CUDA, else "never") | "never" |
@@ -97,13 +103,20 @@ class RenderConfig:
         return dataclasses.replace(self, **kw)
 
     def unsupported(self) -> list[str]:
-        """Settings of the JAX package this port does not run yet, with the
-        ROADMAP item that brings each."""
+        """Settings this port cannot run: those of the JAX package that it
+        does not carry yet, with the ROADMAP item that brings each, and
+        values no package takes."""
         out = []
         if self.rng not in ("auto", "fast"):
             out.append(f"rng={self.rng!r} (ROADMAP M18)")
         if self.path_regen == "never":
-            out.append("path_regen='never': the sample-step path (ROADMAP M8)")
+            out.append("path_regen='never': the scan integrator (ROADMAP M7)")
+        if self.bvh_packet not in ("auto", "force", "never"):
+            out.append(f"bvh_packet={self.bvh_packet!r}: not 'auto', 'force' or 'never'")
+        if self.passes < 1:
+            out.append(f"passes={self.passes}: at least 1")
+        if not self.noise_threshold >= 0.0:
+            out.append(f"noise_threshold={self.noise_threshold}: not >= 0")
         if self.regen_window != 0:
             out.append("regen_window != 0: not ported, by decision")
         if self.mesh_sort:

@@ -38,6 +38,8 @@ class BoxGroup(NamedTuple):
     pk_bb: torch.Tensor | None = None     # (K, M, 8) f32
     pk_links: torch.Tensor | None = None  # (K, M, 4) i32
     pk_box: torch.Tensor | None = None    # (B', 8, 128) f32
+    pk_cbb: torch.Tensor | None = None     # (K, 64, 8) f32 coarse cut (two-level walk)
+    pk_crange: torch.Tensor | None = None  # (K, 64, 4) i32 [start, end) node ranges
 
 
 def _apply_rows(rows, off, v: Vec3, translate: bool) -> Vec3:
@@ -144,15 +146,18 @@ def intersect(group: BoxGroup, ray, t_min, t_max) -> Hit:
     return hitlib.finalize(ray.direction, t_best, geom_n, u, v, group.mat_id[idx], valid)
 
 
-def intersect_kernel(group: BoxGroup, ray, t_min, t_max, active=None, t_cap=None) -> Hit:
+def intersect_kernel(group: BoxGroup, ray, t_min, t_max, active=None, t_cap=None,
+                     packet: bool | None = None) -> Hit:
     """Closest hit of an axis-aligned box group through the BVH traversal
     kernel; only the normal is rebuilt here, from the face axis and the
-    entry flag. `active` and `t_cap` as for triangles.intersect_kernel."""
+    entry flag. `active`, `t_cap` and `packet` as for
+    triangles.intersect_kernel."""
     o, d = ray.origin, ray.direction
     cap = lane_caps(d.x, t_cap, active)
     t, axis_f, near_f, u, v, mat = bvh_traverse(
         (o.x, o.y, o.z), (d.x, d.y, d.z), cap, group.pk_bb, group.pk_links, group.pk_box,
-        t_min, t_max, kind="box")
+        t_min, t_max, kind="box", cbb=group.pk_cbb, crange=group.pk_crange,
+        packet=packet)
     valid = t < BIG * 0.5
     axis = torch.round(axis_f).to(torch.int32)
     d_axis = _select_axis(d.x, d.y, d.z, axis)

@@ -38,16 +38,19 @@ class SphereGroup(NamedTuple):
     pk_bb: torch.Tensor | None = None     # (K, M, 8) f32
     pk_links: torch.Tensor | None = None  # (K, M, 4) i32
     pk_sph: torch.Tensor | None = None    # (B, 8, 128) f32
+    pk_cbb: torch.Tensor | None = None     # (K, 64, 8) f32 coarse cut (two-level walk)
+    pk_crange: torch.Tensor | None = None  # (K, 64, 4) i32 [start, end) node ranges
 
 
 def intersect(group: SphereGroup, ray, t_min, t_max, need_uv: bool = True,
-              use_bvh: bool = False, active=None) -> Hit:
+              use_bvh: bool = False, active=None, packet: bool | None = None) -> Hit:
     """Closest sphere hit per ray. use_bvh takes the BVH kernel route when
     the group has a packed BVH; `active` (the integrator's alive mask) then
-    keeps dead lanes from admitting nodes."""
+    keeps dead lanes from admitting nodes, and `packet` is bvh_traverse's
+    argument of that name."""
     o, d = ray.origin, ray.direction
     if use_bvh and group.pk_bb is not None:
-        return _intersect_bvh(group, ray, t_min, t_max, need_uv, active)
+        return _intersect_bvh(group, ray, t_min, t_max, need_uv, active, packet)
     t_best, idx = sphere_min_t(
         (o.x, o.y, o.z), (d.x, d.y, d.z),
         (group.center.x, group.center.y, group.center.z),
@@ -68,12 +71,14 @@ def intersect(group: SphereGroup, ray, t_min, t_max, need_uv: bool = True,
     return hitlib.finalize(d, t_best, geom_n, u, v, mat_id, valid)
 
 
-def _intersect_bvh(group: SphereGroup, ray, t_min, t_max, need_uv: bool, active) -> Hit:
+def _intersect_bvh(group: SphereGroup, ray, t_min, t_max, need_uv: bool, active,
+                   packet=None) -> Hit:
     o, d = ray.origin, ray.direction
     cap = lane_caps(d.x, active=active)
     t, cx, cy, cz, r, mat = bvh_traverse(
         (o.x, o.y, o.z), (d.x, d.y, d.z), cap, group.pk_bb, group.pk_links, group.pk_sph,
-        t_min, t_max, kind="sphere")
+        t_min, t_max, kind="sphere", cbb=group.pk_cbb, crange=group.pk_crange,
+        packet=packet)
     valid = t < BIG * 0.5
     center = Vec3(cx, cy, cz)
     p = o + d * t

@@ -9,8 +9,8 @@ sets outside=true without flipping the normal toward the ray), uv = (0,0).
 Two routes, as in the JAX package:
   * `intersect_brute`, the dense chunked (rays x triangles) sweep, for
     meshes of at most BRUTE_FORCE_MAX triangles on the CPU;
-  * `intersect_kernel`, the fat-leaf BVH traversal kernel (`ops.bvh_traverse`
-    kind "tri"), with optional supertile ray binning (`ops.binning`) in
+  * `intersect_kernel`, the fat-leaf BVH traversal kernels (`ops.bvh_traverse`
+    kind "tri", or "tri_mxu" for a mesh compiled in that format), with optional supertile ray binning (`ops.binning`) in
     front. On CPU tensors the kernel's plain version runs: that is also the
     route for big meshes on the CPU, where the JAX package walks a second,
     thin (LEAF_SIZE=4) BVH in lockstep, which the port does not carry.
@@ -24,7 +24,7 @@ import torch
 
 from raysnail_tpu_torch.geometry.hit import BIG, Hit
 from raysnail_tpu_torch.ops import binning
-from raysnail_tpu_torch.ops.bvh_traverse import bvh_traverse, lane_caps
+from raysnail_tpu_torch.ops.bvh_traverse import MXU_LANES, bvh_traverse, lane_caps
 from raysnail_tpu_torch.prelude.vec import Vec3
 
 
@@ -41,7 +41,9 @@ class TriangleGroup(NamedTuple):
     # the fat-leaf BVH and its 128-wide leaf blocks (scene._pack_leaf_blocks)
     pk_bb: torch.Tensor     # (K, M, 8) f32
     pk_links: torch.Tensor  # (K, M, 4) i32
-    pk_tri: torch.Tensor    # (B, 24, 128) f32
+    pk_tri: torch.Tensor    # (B, 24, 128) f32, or (B, 16, 640) in the "tri_mxu" format
+    pk_cbb: torch.Tensor | None = None     # (K, 64, 8) f32 coarse cut (two-level walk)
+    pk_crange: torch.Tensor | None = None  # (K, 64, 4) i32 [start, end) node ranges
 
 
 def intersect_brute(group: TriangleGroup, ray, t_min, t_max, chunk: int = 256) -> Hit:
@@ -96,7 +98,7 @@ def intersect_brute(group: TriangleGroup, ray, t_min, t_max, chunk: int = 256) -
 
 
 def intersect_kernel(group: TriangleGroup, ray, t_min, t_max, active=None, t_cap=None,
-                     bin_mode: str = "never") -> Hit:
+                     bin_mode: str = "never", packet: bool | None = None) -> Hit:
     """Closest mesh hit through the BVH traversal kernel, which returns the
     blended normal and the material itself.
 
@@ -104,7 +106,8 @@ def intersect_kernel(group: TriangleGroup, ray, t_min, t_max, active=None, t_cap
     `t_cap` is the best hit distance of cheaper primitive groups: no node
     beyond it is admitted. bin_mode != "never" reorders the rays inside
     4096-lane supertiles by a coherence key first (ops/binning.py) and
-    restores their order after."""
+    restores their order after. `packet` is bvh_traverse's argument of
+    that name: None = the packet kernel when the call needs it."""
     d, o = ray.direction, ray.origin
     n = d.x.shape[0]
     cap = lane_caps(d.x, t_cap, active)
@@ -118,9 +121,13 @@ def intersect_kernel(group: TriangleGroup, ray, t_min, t_max, active=None, t_cap
         dst = binning.dest(key, binning.MODE_KEYS[bin_mode])
         fields = binning.apply(dst, fields)
     fields = [a.contiguous() for a in fields]
+    # the block's lane width tells the pack format: 640 = the feature-product
+    # solve (scene._pack_mxu_blocks), 128 = Cramer (scene._pack_leaf_blocks)
+    kind = "tri_mxu" if group.pk_tri.shape[2] == MXU_LANES else "tri"
     t, nx, ny, nz, _, mat = bvh_traverse(
         tuple(fields[0:3]), tuple(fields[3:6]), fields[6], group.pk_bb, group.pk_links,
-        group.pk_tri, t_min, t_max, kind="tri")
+        group.pk_tri, t_min, t_max, kind=kind, cbb=group.pk_cbb, crange=group.pk_crange,
+        packet=packet)
     if dst is not None:
         t, nx, ny, nz, mat = (a[:n] for a in binning.unapply(dst, [t, nx, ny, nz, mat]))
 

@@ -80,7 +80,14 @@ def kernel_routes(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
     binning, large box groups through kind "box" and sphere groups of
     SPHERE_BVH_AUTO_MIN or more through kind "sphere"; on the CPU it keeps
     the dense and brute routes, and "force" takes the kernel route (whose
-    plain version runs on CPU tensors)."""
+    plain version runs on CPU tensors).
+
+    Which traversal kernel a route takes is `ops.bvh_traverse`'s choice at
+    call time, from what the scene and the environment say: a mesh compiled
+    with RAYSNAIL_MESH_SOLVER=mxu carries "tri_mxu" blocks, leaf blocks
+    above RAYSNAIL_BVH_STREAM_BYTES are streamed, RAYSNAIL_BVH_TWO_LEVEL=1
+    turns the two-level walk on, and each of these takes the packet kernel.
+    cfg.bvh_packet "force" sends the other calls through it too."""
     on_cpu = scene.device.type == "cpu"
     mesh_kernel = cfg.mesh_pallas == "force" or (cfg.mesh_pallas == "auto" and not on_cpu)
     n_spheres = arrays.spheres.radius.shape[0] if arrays.spheres is not None else 0
@@ -93,7 +100,8 @@ def kernel_routes(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
     else:
         mesh_bin = cfg.mesh_bin
     return scenelib.Routes(mesh_kernel=mesh_kernel, mesh_bin=mesh_bin,
-                           sphere_bvh=sphere_bvh, box_bvh=box_bvh)
+                           sphere_bvh=sphere_bvh, box_bvh=box_bvh,
+                           packet={"force": True, "never": False}.get(cfg.bvh_packet))
 
 
 def _make_shade(scene: scenelib.Scene, cfg: RenderConfig, routes: scenelib.Routes):
@@ -193,6 +201,65 @@ def _make_shade(scene: scenelib.Scene, cfg: RenderConfig, routes: scenelib.Route
         return o, d, T, L, alive
 
     return shade
+
+
+def radiance_regen(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
+                   cfg: RenderConfig, camera, px, py, keys0, s0: int, n_samples: int):
+    """Path-regeneration integrator over a pixel list: radiance SUMS over
+    stratification cells [s0, s0 + n_samples) for each pixel lane.
+
+    Each lane owns ONE pixel (px, py, with its stream keys0 =
+    fast_streams(seed, pixel)) and, the moment its path dies, starts the
+    pixel's next sample in place, so the loop's trip count is the worst
+    lane's total path length over its samples. Lanes keep the caller's
+    order: in 16x8 image-tile order, 128 consecutive lanes are one compact
+    packet for the traversal kernels. Draws are keyed by (seed, pixel,
+    sample, bounce), fold_all(fold_all(keys0, sid), b), as in the shuffled
+    integrator, so both compute the same estimate up to summation order.
+
+    The loop's condition is read on the host once per iteration.
+
+    Returns (L_sums (P,) Vec3, n_iterations)."""
+    shape = px.shape
+    dtype, device = cfg.dtype, px.device
+    sqrt_spp = cfg.sqrt_spp
+    if cfg.max_depth <= 0 or n_samples <= 0:  # depth 0 renders black (camera.rs:161-163)
+        return Vec3.zeros(shape, dtype, device), 0
+    shade = _make_shade(scene, cfg, kernel_routes(scene, arrays, cfg))
+    s_end = s0 + n_samples
+
+    def new_ray(sid):
+        keys_s = prng.fold_all(keys0, sid)
+        s_i = (sid % sqrt_spp).to(dtype)
+        s_j = (sid // sqrt_spp).to(dtype)
+        return generate_rays(camera, px, py, s_i, s_j, sqrt_spp, cfg.width, cfg.height,
+                             keys_s)
+
+    sid = torch.full(shape, s0, dtype=torch.int64, device=device)
+    b = torch.zeros(shape, dtype=torch.int64, device=device)
+    r0 = new_ray(sid)
+    o, d = r0.origin, r0.direction
+    ones = Vec3.ones(shape, dtype, device)
+    T, L = ones, Vec3.zeros(shape, dtype, device)
+    alive = torch.ones(shape, dtype=torch.bool, device=device)
+    iterations = 0
+    while bool((sid < s_end).any()):
+        kb = prng.fold_all(prng.fold_all(keys0, sid), b)
+        o, d, T, L, alive2 = shade(arrays, o, d, T, L, alive, kb)
+        # a path at its final bounce contributes nothing more
+        # (camera.rs:161-163): it is done the moment it is shaded
+        alive2 = alive2 & (b + 1 < cfg.max_depth)
+        done = alive & (~alive2)
+        sid = sid + done.to(torch.int64)
+        regen = done & (sid < s_end)
+        rn = new_ray(sid)
+        o = Vec3.where(regen, rn.origin, o)
+        d = Vec3.where(regen, rn.direction, d)
+        T = Vec3.where(regen, ones, T)
+        b = torch.where(done, torch.zeros_like(b), b + 1)
+        alive = alive2 | regen
+        iterations += 1
+    return L, iterations
 
 
 # lanes per image tile on the kernel routes, and the tile shapes tried in order

@@ -1,63 +1,121 @@
-"""Closest hit through the packed fat-leaf BVH: the CUDA kernel and its plain
-PyTorch version.
+"""Closest hit through the packed fat-leaf BVH: the two CUDA kernels and
+their plain PyTorch version.
 
 `bvh_traverse` is the port of the TPU kernel
-`raysnail_tpu/ops/bvh_pallas.py:bvh_traverse` for the leaf kinds "tri",
-"box" and "sphere", over the same packed arrays (`scene._pack_leaf_blocks`)
-and with the same outputs, for any ray count (no padding to a tile). On CUDA
-tensors it launches `csrc/bvh_traverse.cu` (built at first use with nvcc
-into `_build/`, loaded with ctypes) or raises; on CPU tensors it runs
-`bvh_traverse_plain`. There is no fallback from the kernel to the plain
+`raysnail_tpu/ops/bvh_pallas.py:bvh_traverse`, over the same packed arrays
+(`scene._pack_leaf_blocks`, `scene._pack_mxu_blocks`) and with the same
+outputs, for any ray count (no padding to a tile). On CUDA tensors it
+launches one of two kernels (each built at first use with nvcc into
+`_build/`, loaded with ctypes) or raises; on CPU tensors it runs
+`bvh_traverse_plain`. There is no fallback from a kernel to the plain
 version: a build or launch failure raises.
 
-Both walk, per ray, the skip-link DFS order of the ray's own direction
-octant with a per-ray admission cap, and keep the first winner of a tie
-(lowest lane in a leaf, first leaf visited); see the kernel source for what
-they share with the TPU kernel and where they differ. The plain version
-walks all rays in lockstep, one node per step, and sweeps the leaves that
-rays reach in a step as one batched (rays, 128) test.
+  * the per-ray kernel `csrc/bvh_traverse.cu` (kinds "tri", "box",
+    "sphere"): one thread owns one ray and walks the DFS order of the ray's
+    own direction octant;
+  * the packet kernel `csrc/bvh_packet.cu` (kinds "tri", "tri_mxu", "box",
+    "sphere", each with `stream` and `two_level` on or off): a thread block
+    owns a packet of PACKET consecutive rays and walks ONE node order for
+    it, the order of the sign of the packet's summed directions, as the TPU
+    kernel does. `stream` stages admitted leaf blocks in a shared-memory
+    ring; `two_level` walks only inside admitted entries of the coarse cut
+    (`accel.bvh.coarse_cut`); "tri_mxu" solves the triangles with the
+    feature product of the TPU kernel's matrix-unit kind.
 
-`bvh_traverse.launches[kind]` counts kernel launches per kind (not plain
-version calls), so a run can show that its traversals went through the
-kernel.
+`packet=None` picks the packet kernel when the call needs it (kind
+"tri_mxu", `stream` or `two_level`), else the per-ray kernel. `stream=None`
+is the TPU wrapper's auto rule (leaf blocks above STREAM_BYTES,
+RAYSNAIL_BVH_STREAM_BYTES), `two_level=None` its switch
+RAYSNAIL_BVH_TWO_LEVEL=1; both are read at call time.
+
+Every route keeps, per ray, the same rules: the admission cap, the
+admission test against the ray's best t so far, the leaf sweep's formulas,
+and the first winner of a tie (lowest lane in a leaf, first leaf visited).
+`stream` and `two_level` change which nodes a packet touches and where the
+leaf data is read from, never a result: a ray sweeps exactly the leaves that
+it admits itself, in the walk's order. See the kernel sources for what they
+share with the TPU kernel and where they differ. The plain version walks all
+rays in lockstep, one node per step, and sweeps the leaves that rays reach
+in a step as one batched (rays, 128) test.
+
+`bvh_traverse.launches` counts kernel launches (not plain version calls) per
+route: "tri", "box", "sphere" for the per-ray kernel, and
+"packet/<kind>[+stream][+two_level]" for the packet kernel, so a run can
+show which kernels and modes its traversals went through.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
 from raysnail_tpu_torch.geometry.hit import BIG
 from raysnail_tpu_torch.ops import _nvcc
 
-LANES = 128  # primitives per leaf block
-# leaf-block field rows per kind (bvh_pallas.py:54-61):
-#   tri:    0-2 p0 | 3-5 p0-p1 | 6-8 p0-p2 | 9 valid | 10-18 n0 n1 n2 | 19 mat
-#   box:    0-2 p_min | 3-5 p_max | 6 valid | 7 mat
-#   sphere: 0-2 center | 3 r^2 | 4 valid | 5 mat | 6 r
-NF = {"tri": 24, "box": 8, "sphere": 8}
-_KIND_ID = {"tri": 0, "box": 1, "sphere": 2}
+LANES = 128       # primitives per leaf block
+PACKET = 128      # rays per packet of the packet kernel (one 16x8 image tile)
+COARSE_MAX = 64   # entries of the coarse cut, padding included
+MXU_LANES = 640   # lane width of a "tri_mxu" block: 512 solve + 128 attributes
+# leaf-block field rows per kind (bvh_pallas.py:54-71):
+#   tri:     0-2 p0 | 3-5 p0-p1 | 6-8 p0-p2 | 9 valid | 10-18 n0 n1 n2 | 19 mat
+#   box:     0-2 p_min | 3-5 p_max | 6 valid | 7 mat
+#   sphere:  0-2 center | 3 r^2 | 4 valid | 5 mat | 6 r
+#   tri_mxu: (16, 640): lanes 0:512 the solve table F (rows 0-9; columns
+#            denom | n.o - n.p0 | beta numerator | gamma numerator, 128 each),
+#            lanes 512:640 the attribute table (rows 0 valid | 1 mat | 2-4 n0
+#            | 5-7 n1 | 8-10 n2)
+NF = {"tri": 24, "box": 8, "sphere": 8, "tri_mxu": 16}
+WIDTH = {"tri": LANES, "box": LANES, "sphere": LANES, "tri_mxu": MXU_LANES}
+_KIND_ID = {"tri": 0, "box": 1, "sphere": 2, "tri_mxu": 3}
+_PER_RAY_KINDS = ("tri", "box", "sphere")
+# floats of a leaf block that its sweep reads, which is what `stream` stages
+# (Shape<KIND>::staged in csrc/bvh_packet.cu): tri rows 0-9 (5,120 B), box
+# rows 0-6 (3,584 B), sphere rows 0-4 (2,560 B), tri_mxu the solve table and
+# the valid row (20,992 B); and the words of the winner's column that the
+# epilogue reads once per ray that hit
+STAGED_FLOATS = {"tri": 10 * LANES, "box": 7 * LANES, "sphere": 5 * LANES,
+                 "tri_mxu": 10 * 512 + LANES}
+ATTR_WORDS = {"tri": 10, "box": 7, "sphere": 5, "tri_mxu": 10}
+# shared-memory ring depth of the packet kernel's `stream` mode per kind: the
+# leaves a packet collects before it sweeps them; 1 to MAX_DEPTH
+RING_DEPTH = {"tri": 8, "box": 8, "sphere": 8, "tri_mxu": 4}
+MAX_DEPTH = 8
 
-_lib = None
+_libs = {}
+
+
+def stream_bytes() -> int:
+    """Leaf blocks above this many bytes are streamed (bvh_pallas.py:574)."""
+    return int(os.environ.get("RAYSNAIL_BVH_STREAM_BYTES", str(64 * 1024 * 1024)))
 
 
 def build(verbose: bool = False) -> str:
-    """Compile the kernel if its library is missing; -> the library path."""
+    """Compile the per-ray kernel if its library is missing; -> the path."""
     return _nvcc.build_cuda("bvh_traverse", verbose)
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        fn = lib.bvh_traverse_launch
-        ptr = ctypes.c_void_p
-        fn.argtypes = ([ctypes.c_int] + [ptr] * 10 + [ctypes.c_int] * 4
-                       + [ctypes.c_float, ctypes.c_float, ptr, ptr, ptr])
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def build_packet(verbose: bool = False) -> str:
+    """Compile the packet kernel if its library is missing; -> the path."""
+    return _nvcc.build_cuda("bvh_packet", verbose)
+
+
+def _load(name: str):
+    if name not in _libs:
+        ptr, c_int, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if name == "bvh_traverse":
+            lib = ctypes.CDLL(build())
+            fn = lib.bvh_traverse_launch
+            fn.argtypes = [c_int] + [ptr] * 10 + [c_int] * 4 + [c_float, c_float, ptr, ptr, ptr]
+        else:
+            lib = ctypes.CDLL(build_packet())
+            fn = lib.bvh_packet_launch
+            fn.argtypes = ([c_int] + [ptr] * 12 + [c_int] * 6
+                           + [c_float, c_float, ptr, ptr, ptr])
+        fn.restype = c_int
+        _libs[name] = lib
+    return _libs[name]
 
 
 def safe_inv(d):
@@ -93,7 +151,28 @@ def _sweep(kind, blk, o, d, inv, bt, t_min, t_max):
     lane is not a closer hit. (a, b) = (beta, gamma) for tri, (face axis,
     entry flag) for box."""
     fld = lambda i: blk[:, i, :]
-    if kind == "tri":
+    if kind == "tri_mxu":
+        # ray features [d | o | o x d | 1] against the solve table F: each of
+        # the four 128-wide column groups is a 10-term dot product, summed
+        # term by term in row order so that the kernel rounds alike
+        # (bvh_pallas.py:181-189, :235-249)
+        feat = [d[0], d[1], d[2], o[0], o[1], o[2],
+                o[1] * d[2] - o[2] * d[1], o[2] * d[0] - o[0] * d[2],
+                o[0] * d[1] - o[1] * d[0]]
+        out4 = feat[0] * blk[:, 0, 0:512]
+        for k in range(1, 9):
+            out4 = out4 + feat[k] * blk[:, k, 0:512]
+        out4 = out4 + blk[:, 9, 0:512]  # the constant feature 1
+        den = out4[:, 0:128]
+        den = torch.where(torch.abs(den) < 1e-20, torch.full_like(den, 1e-20), den)
+        inv_den = 1.0 / den
+        t = -out4[:, 128:256] * inv_den
+        beta = out4[:, 256:384] * inv_den
+        gamma = out4[:, 384:512] * inv_den
+        ok = ((beta >= 0.0) & (beta < 1.0) & (gamma > 0.0) & (beta + gamma < 1.0)
+              & (t >= t_min) & (t <= t_max) & (blk[:, 0, 512:640] > 0.0))
+        a, b = beta, gamma
+    elif kind == "tri":
         j, k, ll = fld(0) - o[0], fld(1) - o[1], fld(2) - o[2]
         ax, ay, az = fld(3), fld(4), fld(5)
         ddx, ddy, ddz = fld(6), fld(7), fld(8)
@@ -155,6 +234,10 @@ def _sweep(kind, blk, o, d, inv, bt, t_min, t_max):
 def _epilogue(kind, f, o, d, t, a, b):
     """Winner attributes from its block column f (h, NF) -> (a0..a3, mat)."""
     z = torch.zeros_like(t)
+    if kind == "tri_mxu":  # f: the winner's column of the attribute table
+        w0 = 1.0 - a - b
+        n = [f[:, 2 + c] * w0 + f[:, 5 + c] * a + f[:, 8 + c] * b for c in range(3)]
+        return n[0], n[1], n[2], z, f[:, 1]
     if kind == "tri":
         w0 = 1.0 - a - b
         n = [f[:, 10 + c] * w0 + f[:, 13 + c] * a + f[:, 16 + c] * b for c in range(3)]
@@ -172,19 +255,62 @@ def _epilogue(kind, f, o, d, t, a, b):
     return f[:, 0], f[:, 1], f[:, 2], f[:, 6], f[:, 5]
 
 
+def packet_octant(dx, dy, dz):
+    """The packet kernel's node order per ray: the direction octant of the
+    sum of the directions of the ray's packet (PACKET consecutive rays; a
+    last, partial packet sums the rays it has), bvh_pallas.py:164-169. The
+    sum runs in the kernel's order (halving within each 32 rays, then the
+    four partial sums left to right), so that its sign is the kernel's."""
+    n = dx.shape[0]
+    pad = (-n) % PACKET
+
+    def total(x):
+        x = torch.nn.functional.pad(x, (0, pad)).reshape(-1, PACKET // 32, 32)
+        for half in (16, 8, 4, 2, 1):
+            x = x[..., :half] + x[..., half:2 * half]
+        x = x[..., 0]
+        return ((x[:, 0] + x[:, 1]) + x[:, 2]) + x[:, 3]
+
+    octant = ((total(dx) < 0).long() * 4 + (total(dy) < 0).long() * 2
+              + (total(dz) < 0).long())
+    return octant.repeat_interleave(PACKET)[:n]
+
+
+def cut_counts(crange, m: int):
+    """Real (unpadded) entries of the coarse cut per node order -> (K,)
+    int64: a padding entry's range starts at m."""
+    return (crange[:, :, 0] < m).sum(dim=1)
+
+
 def bvh_traverse_plain(origin_xyz, dir_xyz, t_cap, pk_bb, pk_links, pk_prim,
-                       t_min, t_max, kind: str = "tri"):
+                       t_min, t_max, kind: str = "tri", packet: bool = False,
+                       stream: bool = False, two_level: bool = False,
+                       cbb=None, crange=None, stats: dict | None = None):
     """Plain PyTorch version of `bvh_traverse`: the same per-ray walk, cap
-    and sweep rules, in lockstep over all rays."""
+    and sweep rules, in lockstep over all rays.
+
+    packet=False walks each ray's own direction octant (the per-ray
+    kernel), packet=True the octant of the ray's packet (the packet kernel).
+    two_level=True loops, per ray, over the real entries of the coarse cut
+    in the octant's order and walks only inside each admitted entry's
+    [start, end) range; padding entries are never tested. `stream` is
+    accepted and ignored: there is nothing to stage here, and the staged
+    copy changes no result.
+
+    `stats`, when given, gains what this call's data needed: "node_tests"
+    and "sweeps" (per ray), "nodes" and "leaves" (distinct ones touched)."""
+    del stream
     ox, oy, oz = origin_xyz
     dx, dy, dz = dir_xyz
     n = ox.shape[0]
     dev, f32 = ox.device, torch.float32
     k_ord, m = pk_bb.shape[0], pk_bb.shape[1]
-    if k_ord == 8:
-        octant = ((dx < 0).long() * 4 + (dy < 0).long() * 2 + (dz < 0).long())
-    else:
+    if k_ord != 8:
         octant = torch.zeros(n, dtype=torch.long, device=dev)
+    elif packet:
+        octant = packet_octant(dx, dy, dz)
+    else:
+        octant = ((dx < 0).long() * 4 + (dy < 0).long() * 2 + (dz < 0).long())
     base = octant * m
     inv = [safe_inv(c) for c in (dx, dy, dz)]
     o_all, d_all = (ox, oy, oz), (dx, dy, dz)
@@ -202,43 +328,82 @@ def bvh_traverse_plain(origin_xyz, dir_xyz, t_cap, pk_bb, pk_links, pk_prim,
     best_lane = torch.zeros(n, dtype=torch.long, device=dev)
     best_a = torch.zeros(n, dtype=f32, device=dev)
     best_b = torch.zeros(n, dtype=f32, device=dev)
+    if stats is not None:
+        seen_node = torch.zeros(bb.shape[0], dtype=torch.bool, device=dev)
+        seen_leaf = torch.zeros(pk_prim.shape[0], dtype=torch.bool, device=dev)
+        node_tests = sweeps = 0
 
-    node = torch.where(cap >= t_min, 0, m).long()
-    idx = torch.nonzero(node < m)[:, 0]
+    def admits(box, idx):
+        near, far = slab(box, [c[idx] for c in o_all], [c[idx] for c in inv])
+        return ((near <= far) & (far >= t_min)
+                & (near <= torch.minimum(best_t[idx], cap[idx])))
+
+    idx = torch.nonzero(cap >= t_min)[:, 0]
+    node = torch.zeros(n, dtype=torch.long, device=dev)
+    if two_level:
+        # every ray starts exhausted, before cut entry 0
+        cbbf = cbb.reshape(-1, 8)
+        crf = crange.reshape(-1, 4).long()
+        n_cut = cut_counts(crange, m)[octant]
+        cbase = octant * cbb.shape[1]
+        end = torch.zeros(n, dtype=torch.long, device=dev)
+        cut = torch.zeros(n, dtype=torch.long, device=dev)
+        idx = idx[n_cut[idx] > 0]
+    else:
+        end = torch.full((n,), m, dtype=torch.long, device=dev)
     while idx.numel():
-        nd = node[idx]
-        row = base[idx] + nd
-        o = [c[idx] for c in o_all]
-        dv = [c[idx] for c in d_all]
-        iv = [c[idx] for c in inv]
-        near, far = slab(bb[row], o, iv)
-        links = lk[row]
-        admit = ((near <= far) & (far >= t_min)
-                 & (near <= torch.minimum(best_t[idx], cap[idx])))
-        leaf = links[:, 1] > 0
-        sw = torch.nonzero(admit & leaf)[:, 0]
-        if sw.numel():
-            rays, blocks = idx[sw], links[sw, 0]
-            col = lambda v: [c[sw][:, None] for c in v]
-            tm, a, b = _sweep(kind, pk_prim[blocks], col(o), col(dv), col(iv),
-                              best_t[rays][:, None], t_min, t_max)
-            lane = torch.argmin(tm, dim=1)  # the first lane of the minimum
-            rmin = tm.gather(1, lane[:, None])[:, 0]
-            take = rmin < best_t[rays]
-            upd = rays[take]
-            best_t[upd] = rmin[take]
-            best_blk[upd] = blocks[take]
-            best_lane[upd] = lane[take]
-            best_a[upd] = a.gather(1, lane[:, None])[:, 0][take]
-            best_b[upd] = b.gather(1, lane[:, None])[:, 0][take]
-        nxt = torch.where(admit & ~leaf, nd + 1, links[:, 2])
-        node[idx] = nxt
-        idx = idx[nxt < m]
+        walk = idx
+        if two_level:
+            # rays past their entry's range test the next entry instead of a node
+            adv = node[idx] >= end[idx]
+            ia, walk = idx[adv], idx[~adv]
+            if ia.numel():
+                row = cbase[ia] + cut[ia]
+                ok = admits(cbbf[row], ia)
+                node[ia] = torch.where(ok, crf[row, 0], node[ia])
+                end[ia] = torch.where(ok, crf[row, 1], end[ia])
+                cut[ia] += 1
+        if walk.numel():
+            nd = node[walk]
+            row = base[walk] + nd
+            links = lk[row]
+            admit = admits(bb[row], walk)
+            leaf = links[:, 1] > 0
+            sw = torch.nonzero(admit & leaf)[:, 0]
+            if stats is not None:
+                node_tests += int(walk.numel())
+                sweeps += int(sw.numel())
+                seen_node[row] = True
+                seen_leaf[links[sw, 0]] = True
+            if sw.numel():
+                rays, blocks = walk[sw], links[sw, 0]
+                col = lambda v: [c[rays][:, None] for c in v]
+                tm, a, b = _sweep(kind, pk_prim[blocks], col(o_all), col(d_all), col(inv),
+                                  best_t[rays][:, None], t_min, t_max)
+                lane = torch.argmin(tm, dim=1)  # the first lane of the minimum
+                rmin = tm.gather(1, lane[:, None])[:, 0]
+                take = rmin < best_t[rays]
+                upd = rays[take]
+                best_t[upd] = rmin[take]
+                best_blk[upd] = blocks[take]
+                best_lane[upd] = lane[take]
+                best_a[upd] = a.gather(1, lane[:, None])[:, 0][take]
+                best_b[upd] = b.gather(1, lane[:, None])[:, 0][take]
+            node[walk] = torch.where(admit & ~leaf, nd + 1, links[:, 2])
+        if two_level:
+            idx = idx[(node[idx] < end[idx]) | (cut[idx] < n_cut[idx])]
+        else:
+            idx = idx[node[idx] < m]
+    if stats is not None:
+        for key, val in (("node_tests", node_tests), ("sweeps", sweeps),
+                         ("nodes", int(seen_node.sum())), ("leaves", int(seen_leaf.sum()))):
+            stats[key] = stats.get(key, 0) + val
 
     out = [torch.zeros(n, dtype=f32, device=dev) for _ in range(5)]
     hit = torch.nonzero(best_t < BIG)[:, 0]
     if hit.numel():
-        f = pk_prim[best_blk[hit], :, best_lane[hit]]  # (h, NF)
+        lane0 = 512 if kind == "tri_mxu" else 0
+        f = pk_prim[best_blk[hit], :, lane0 + best_lane[hit]]  # (h, NF)
         attrs = _epilogue(kind, f, [c[hit] for c in o_all], [c[hit] for c in d_all],
                           best_t[hit], best_a[hit], best_b[hit])
         for dst, src in zip(out, attrs):
@@ -255,18 +420,36 @@ def _check(name, a, shape, dtype, device):
                          f"{a.device}{'' if a.is_contiguous() else ' (strided)'}")
 
 
+def launch_key(kind: str, packet: bool, stream: bool = False, two_level: bool = False) -> str:
+    """The key of `bvh_traverse.launches` for one route."""
+    if not packet:
+        return kind
+    return f"packet/{kind}" + ("+stream" if stream else "") + ("+two_level" if two_level else "")
+
+
 def bvh_traverse(origin_xyz, dir_xyz, t_cap, pk_bb, pk_links, pk_prim, t_min, t_max,
-                 kind: str = "tri"):
+                 kind: str = "tri", stream: bool | None = None, cbb=None, crange=None,
+                 two_level: bool | None = None, packet: bool | None = None):
     """-> (t, a0, a1, a2, a3, mat), each (N,); mat is int32.
 
     origin_xyz, dir_xyz: three (N,) f32 tensors each; t_cap (N,) f32: the
     best hit distance of cheaper primitive groups, <= 0 for dead lanes.
     pk_bb (K, M, 8) f32, pk_links (K, M, 4) i32 with K = 8 or 1, pk_prim
-    (B, NF, 128) f32 (scene._pack_leaf_blocks). Outputs per kind:
-      tri:    a0-2 = blended (unnormalized) vertex normal, a3 = 0
-      box:    a0 = face axis, a1 = entry flag, a2, a3 = face uv
-      sphere: a0-2 = center, a3 = radius
-    A miss gives t = BIG, zero attributes and mat 0."""
+    (B, NF, 128) f32 (scene._pack_leaf_blocks) or, for "tri_mxu", (B, 16, 640)
+    (scene._pack_mxu_blocks). Outputs per kind:
+      tri, tri_mxu: a0-2 = blended (unnormalized) vertex normal, a3 = 0
+      box:          a0 = face axis, a1 = entry flag, a2, a3 = face uv
+      sphere:       a0-2 = center, a3 = radius
+    A miss gives t = BIG, zero attributes and mat 0.
+
+    stream: None = auto (leaf blocks above `stream_bytes()`); True stages
+    admitted leaves in the packet kernel's shared-memory ring of
+    RING_DEPTH[kind] slots. cbb (K, 64, 8) f32 and crange (K, 64, 4) i32 are
+    the coarse cut (scene._leaf_tree). two_level: None =
+    RAYSNAIL_BVH_TWO_LEVEL=1 where the group has a cut, as in the TPU
+    wrapper; True without both arrays raises. packet: None = the packet
+    kernel when kind, stream or two_level needs it; False with such a call
+    raises."""
     if kind not in _KIND_ID:
         raise ValueError(f"bvh_traverse: unknown kind {kind!r}")
     device = origin_xyz[0].device
@@ -281,29 +464,64 @@ def bvh_traverse(origin_xyz, dir_xyz, t_cap, pk_bb, pk_links, pk_prim, t_min, t_
         raise ValueError(f"bvh_traverse: pk_bb holds {k_ord} node orders, not 1 or 8")
     _check("pk_bb", pk_bb, (k_ord, m, 8), torch.float32, device)
     _check("pk_links", pk_links, (k_ord, m, 4), torch.int32, device)
-    _check("pk_prim", pk_prim, (pk_prim.shape[0], NF[kind], LANES), torch.float32, device)
+    _check("pk_prim", pk_prim, (pk_prim.shape[0], NF[kind], WIDTH[kind]), torch.float32,
+           device)
+    if stream is None:
+        stream = pk_prim.numel() * 4 > stream_bytes()
+    has_cut = cbb is not None and crange is not None
+    if two_level is None:
+        two_level = has_cut and os.environ.get("RAYSNAIL_BVH_TWO_LEVEL", "0") == "1"
+    elif two_level and not has_cut:
+        raise ValueError("bvh_traverse: two_level=True needs the coarse cut (cbb and crange)")
+    two_level = bool(two_level)
+    if two_level:
+        _check("cbb", cbb, (k_ord, COARSE_MAX, 8), torch.float32, device)
+        _check("crange", crange, (k_ord, COARSE_MAX, 4), torch.int32, device)
+    needs_packet = kind not in _PER_RAY_KINDS or stream or two_level
+    if packet is None:
+        packet = needs_packet
+    elif not packet and needs_packet:
+        raise ValueError(f"bvh_traverse: kind {kind!r} with stream={stream}, "
+                         f"two_level={two_level} needs the packet kernel")
     if device.type == "cpu":
         return bvh_traverse_plain(origin_xyz, dir_xyz, t_cap, pk_bb, pk_links, pk_prim,
-                                  t_min, t_max, kind)
+                                  t_min, t_max, kind, packet=packet, stream=stream,
+                                  two_level=two_level, cbb=cbb, crange=crange)
     if device.type != "cuda":
         raise ValueError(f"bvh_traverse: unsupported device {device}")
-    if pk_bb.data_ptr() % 16 or pk_links.data_ptr() % 16:
-        raise ValueError("bvh_traverse: pk_bb and pk_links must be 16-byte aligned")
+    aligned = [pk_bb, pk_links, pk_prim] + ([cbb, crange] if two_level else [])
+    if any(a.data_ptr() % 16 for a in aligned):
+        raise ValueError("bvh_traverse: the packed arrays must be 16-byte aligned")
 
     out = torch.empty((5, n), dtype=torch.float32, device=device)
     mat = torch.empty(n, dtype=torch.int32, device=device)
-    lib = _load()
+    ptrs = [a.data_ptr() for a in (*origin_xyz, *dir_xyz, t_cap, pk_bb, pk_links, pk_prim)]
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.bvh_traverse_launch(
-            _KIND_ID[kind], *(a.data_ptr() for a in (*origin_xyz, *dir_xyz, t_cap, pk_bb,
-                                                     pk_links, pk_prim)),
-            n, m, k_ord, NF[kind], float(t_min), float(t_max),
-            out.data_ptr(), mat.data_ptr(), stream)
+        cu_stream = torch.cuda.current_stream(device).cuda_stream
+        if packet:
+            depth = int(RING_DEPTH[kind])
+            if not 1 <= depth <= MAX_DEPTH:
+                raise ValueError(f"bvh_traverse: ring depth {depth} is not in 1..{MAX_DEPTH}")
+            cut = [cbb.data_ptr(), crange.data_ptr()] if two_level else [None, None]
+            err = _load("bvh_packet").bvh_packet_launch(
+                _KIND_ID[kind], *ptrs, *cut, n, m, k_ord, int(stream), int(two_level),
+                depth, float(t_min), float(t_max), out.data_ptr(), mat.data_ptr(), cu_stream)
+        else:
+            err = _load("bvh_traverse").bvh_traverse_launch(
+                _KIND_ID[kind], *ptrs, n, m, k_ord, NF[kind], float(t_min), float(t_max),
+                out.data_ptr(), mat.data_ptr(), cu_stream)
+    key = launch_key(kind, packet, stream, two_level)
     if err != 0:
-        raise RuntimeError(f"bvh_traverse ({kind}) kernel launch failed: cudaError {err}")
-    bvh_traverse.launches[kind] += 1
+        raise RuntimeError(f"bvh_traverse ({key}) kernel launch failed: cudaError {err}")
+    bvh_traverse.launches[key] += 1
     return out[0], out[1], out[2], out[3], out[4], mat
 
 
-bvh_traverse.launches = {kind: 0 for kind in _KIND_ID}
+def launch_keys() -> list:
+    """Every key of `bvh_traverse.launches`."""
+    return [*_PER_RAY_KINDS,
+            *(launch_key(kind, True, s, t) for kind in _KIND_ID
+              for s in (False, True) for t in (False, True))]
+
+
+bvh_traverse.launches = {key: 0 for key in launch_keys()}

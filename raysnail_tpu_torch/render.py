@@ -1,9 +1,22 @@
-"""L6 execution: the full-frame render step and the pass driver.
+"""L6 execution: the frame step, the sample-step path and the multi-pass
+adaptive loop.
 
-A frame is one call of the shuffled path-regeneration integrator over every
-pixel and every effective sample, then the color transform. Only the first
-(full) pass is ported: adaptive redo passes need the sample-step path
-(ROADMAP M8), so `render_passes` raises for passes > 1.
+A full frame is one call of the shuffled path-regeneration integrator over
+every pixel and every effective sample (`make_frame_step`), then the color
+transform. The sample-step path (`sample_sums`, `render_sums`) renders a
+given pixel list instead, one lane per pixel through the plain
+regeneration integrator; with the list in 16x8 image-tile order
+(`_tile_grid`), 128 consecutive lanes are one compact packet for the
+traversal kernels. It carries the sparse passes of `render_passes`.
+
+Adaptive passes: the reference computes a 5x5 noise metric and a redo map,
+but its RedoController clones the map BEFORE the pass loop and never sees
+updates (raysnail.rs:369-372 vs 405-424), so the reference re-renders every
+pixel each pass. As in the JAX package, later passes re-render only pixels
+whose noise reaches the threshold. The JAX package pads the active set to a
+few fixed bucket sizes to spare XLA compiles; PyTorch compiles nothing per
+shape, so the port dispatches the active set as it is (the kernels mask
+their own ragged edge).
 """
 
 from __future__ import annotations
@@ -11,21 +24,65 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from raysnail_tpu_torch import integrator
 from raysnail_tpu_torch import scene as scenelib
 from raysnail_tpu_torch.camera import Camera
 from raysnail_tpu_torch.config import RenderConfig
 from raysnail_tpu_torch.prelude import color as colorlib
+from raysnail_tpu_torch.prelude import rng as prng
+from raysnail_tpu_torch.prelude.vec import Vec3
+
+
+def _check(cfg: RenderConfig):
+    problems = cfg.unsupported()
+    if problems:
+        raise NotImplementedError("not ported yet: " + "; ".join(problems))
+
+
+def sample_sums(scene: scenelib.Scene, cfg: RenderConfig, arrays: scenelib.SceneArrays,
+                camera: Camera, seed: int, sample_ids, px, py) -> Vec3:
+    """Radiance sums over the given stratification cells for the given flat
+    pixel coordinates -> (P,) Vec3.
+
+    sample_ids must be a contiguous ascending range: the regeneration
+    integrator consumes it as [ids[0], ids[0] + len). The JAX package reads
+    any other id set silently as that range; here it is an error. Fast RNG
+    only: per-ray threefry keys are ROADMAP M18, and `_check` raises for
+    them."""
+    _check(cfg)
+    ids = np.asarray(sample_ids, np.int64).ravel()
+    if ids.size and not np.array_equal(ids, np.arange(ids[0], ids[0] + ids.size)):
+        raise ValueError("sample_sums: sample_ids must be a contiguous ascending range, got "
+                         f"{ids.tolist()}")
+    device = scene.device
+    px = torch.as_tensor(px, dtype=cfg.dtype, device=device)
+    py = torch.as_tensor(py, dtype=cfg.dtype, device=device)
+    pixel_ids = py.to(torch.int64) * cfg.width + px.to(torch.int64)
+    keys0 = prng.fast_streams(seed, pixel_ids)
+    sums, _ = integrator.radiance_regen(
+        scene, arrays, cfg, camera, px, py, keys0, int(ids[0]) if ids.size else 0,
+        int(ids.size))
+    return sums
+
+
+def make_sample_step(scene: scenelib.Scene, cfg: RenderConfig):
+    """The sample step: step(arrays, camera, seed, sample_ids, px, py) ->
+    (P,) Vec3 sums."""
+    _check(cfg)
+
+    def step(arrays: scenelib.SceneArrays, camera: Camera, seed: int, sample_ids, px, py):
+        return sample_sums(scene, cfg, arrays, camera, seed, sample_ids, px, py)
+
+    return step
 
 
 def make_frame_step(scene: scenelib.Scene, cfg: RenderConfig):
     """FULL-FRAME step through the shuffled path-regeneration integrator:
     step(arrays, camera, seed) -> ((W*H,) Vec3 radiance sums in row-major
     pixel order, iteration count)."""
-    problems = cfg.unsupported()
-    if problems:
-        raise NotImplementedError("not ported yet: " + "; ".join(problems))
+    _check(cfg)
 
     def step(arrays: scenelib.SceneArrays, camera: Camera, seed: int):
         return integrator.radiance_regen_shuffle(scene, arrays, cfg, camera, seed,
@@ -34,25 +91,142 @@ def make_frame_step(scene: scenelib.Scene, cfg: RenderConfig):
     return step
 
 
+def _full_grid(cfg: RenderConfig):
+    py, px = np.meshgrid(np.arange(cfg.height), np.arange(cfg.width), indexing="ij")
+    return px.ravel().astype(np.float32), py.ravel().astype(np.float32)
+
+
+TILE_W, TILE_H = 16, 8  # 16x8 = 128 pixels = one traversal packet
+
+
+def _tile_key(px, py, width: int):
+    """Spatial sort key: 16x8 image tiles in row-major tile order, row-major
+    within the tile. 128 consecutive rays = one compact-frustum packet for
+    the packet traversal kernel instead of a strip of image rows."""
+    x = np.asarray(px, np.int64)
+    y = np.asarray(py, np.int64)
+    tiles_x = -(-width // TILE_W)
+    return (((y // TILE_H) * tiles_x + x // TILE_W) * TILE_H
+            + (y % TILE_H)) * TILE_W + (x % TILE_W)
+
+
+def _tile_grid(cfg: RenderConfig):
+    """-> (px, py, inv): the full pixel list in tile-major order plus the
+    inverse permutation back to row-major image order."""
+    px, py = _full_grid(cfg)
+    order = np.argsort(_tile_key(px, py, cfg.width), kind="stable")
+    inv = np.empty_like(order)
+    inv[order] = np.arange(order.size)
+    return px[order], py[order], inv
+
+
+def _sample_chunks(cfg: RenderConfig, n_pix: int, multiple_of: int = 1,
+                   budget: Optional[int] = None):
+    """Chunk size k dividing spp, so that a dispatch holds at most `budget`
+    (default cfg.ray_batch) rays; `multiple_of` constrains k to multiples of
+    a sample-axis size (the JAX package's sharded steps)."""
+    spp = cfg.effective_samples
+    budget = cfg.ray_batch if budget is None else budget
+    k_max = max(1, min(spp, budget // max(n_pix, 1)))
+    good = [d for d in range(1, k_max + 1) if spp % d == 0 and d % multiple_of == 0]
+    return max(good) if good else multiple_of
+
+
+def render_sums(scene, camera, cfg, seed, px, py, step=None, arrays=None) -> Vec3:
+    """Radiance SUMS over all effective samples for the given pixel list."""
+    spp = cfg.effective_samples
+    step = step or make_sample_step(scene, cfg)
+    arrays = arrays if arrays is not None else scene.arrays
+    px = torch.as_tensor(px, dtype=cfg.dtype, device=scene.device)
+    py = torch.as_tensor(py, dtype=cfg.dtype, device=scene.device)
+    k = _sample_chunks(cfg, px.shape[0])
+    accum = None
+    for start in range(0, spp, k):
+        sums = step(arrays, camera, seed, np.arange(start, start + k), px, py)
+        accum = sums if accum is None else accum + sums
+    return accum
+
+
+def _to_image(accum: Vec3, cfg: RenderConfig) -> np.ndarray:
+    """Radiance sums -> (P, 3) float32 display colors (numpy)."""
+    img = colorlib.into_color(accum, float(cfg.effective_samples), cfg.gamma)
+    return img.to_array().cpu().numpy()
+
+
 def render(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
            seed: int = 0, arrays=None) -> np.ndarray:
     """Single-pass full frame -> (H, W, 3) float32 display image (numpy)."""
     accum, _ = make_frame_step(scene, cfg)(
         arrays if arrays is not None else scene.arrays, camera, seed)
-    img = colorlib.into_color(accum, float(cfg.effective_samples), cfg.gamma)
-    return img.to_array().cpu().numpy().reshape(cfg.height, cfg.width, 3)
+    return _to_image(accum, cfg).reshape(cfg.height, cfg.width, 3)
+
+
+# -- multi-pass adaptive oversampling ---------------------------------------
+
+def calc_noise(img: np.ndarray, compat_bug: bool = False) -> np.ndarray:
+    """Per-pixel noise: sum over the 5x5 neighborhood of squared RGB distance
+    to the center (raysnail.rs:138-173). Out-of-bounds neighbors count 0.
+    compat_bug=True replicates `let x = y` (raysnail.rs:163), which makes the
+    window columns track the row index."""
+    h, w, _ = img.shape
+    noise = np.zeros((h, w), np.float32)
+    if not compat_bug:
+        for dy in range(-2, 3):
+            for dx in range(-2, 3):
+                shifted = np.zeros_like(img)
+                ys = slice(max(0, dy), h + min(0, dy))
+                yd = slice(max(0, -dy), h + min(0, -dy))
+                xs = slice(max(0, dx), w + min(0, dx))
+                xd = slice(max(0, -dx), w + min(0, -dx))
+                shifted[yd, xd] = img[ys, xs]
+                # out-of-bounds -> same as center -> zero diff
+                mask = np.zeros((h, w, 1), np.float32)
+                mask[yd, xd] = 1.0
+                diff = (img - shifted) * mask
+                noise += np.sum(diff * diff, axis=-1)
+    else:
+        ys, _ = np.mgrid[0:h, 0:w]
+        for dy in range(-2, 3):
+            for dx in range(-2, 3):
+                yy = ys + dy
+                xx = ys + dx  # the reference's x = y bug
+                inb = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+                nb = img[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)]
+                diff = np.where(inb[..., None], img - nb, 0.0)
+                noise += np.sum(diff * diff, axis=-1)
+    return noise
 
 
 def render_passes(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
-                  seed: int = 0, progress: Optional[Callable] = None) -> np.ndarray:
-    """The pass driver for passes == 1: one full frame, then `progress(done,
-    total, img)`."""
-    if cfg.passes != 1:
-        raise NotImplementedError(
-            "passes > 1 (adaptive oversampling) needs the sample-step path, "
-            "not ported yet (ROADMAP M8)")
-    img = render(scene, camera, cfg, seed=seed)
-    if progress is not None:
-        spp = cfg.effective_samples
-        progress(spp, spp, img)
+                  seed: int = 0, arrays=None,
+                  progress: Optional[Callable] = None) -> np.ndarray:
+    """Multi-pass render with adaptive oversampling (raysnail.rs:379-427):
+    the first pass is the full frame step; pass k re-renders the pixels whose
+    noise reaches cfg.noise_threshold, in tile order through the sample
+    step, with seed + k, and running-averages display colors
+    (old*k + new)/(k+1). `progress(done, total, img)` is called after each
+    pass; returning False cancels."""
+    spp = cfg.effective_samples
+    h, w = cfg.height, cfg.width
+    img = render(scene, camera, cfg, seed=seed, arrays=arrays)
+    if progress is not None and progress(spp, spp * cfg.passes, img) is False:
+        return img
+    if cfg.passes == 1:
+        return img
+    step = make_sample_step(scene, cfg)
+    px_full, py_full = _full_grid(cfg)
+    for k in range(1, cfg.passes):
+        redo = calc_noise(img, cfg.compat_noise_bug) >= cfg.noise_threshold
+        idx = np.flatnonzero(redo.ravel())
+        if idx.size == 0:
+            break
+        # tile-coherent dispatch order for the sparse active set too
+        idx = idx[np.argsort(_tile_key(px_full[idx], py_full[idx], w), kind="stable")]
+        sums = render_sums(scene, camera, cfg, seed + k, px_full[idx], py_full[idx],
+                           step=step, arrays=arrays)
+        flat = img.reshape(-1, 3)
+        flat[idx] = (flat[idx] * k + _to_image(sums, cfg)) / (k + 1.0)
+        img = flat.reshape(h, w, 3)
+        if progress is not None and progress(spp * (k + 1), spp * cfg.passes, img) is False:
+            break
     return img

@@ -9,8 +9,9 @@ transform facade.
 Large groups are also packed for the BVH traversal kernel, with the JAX
 package's host packing and gates: every mesh, static sphere groups of 64 or
 more and axis-aligned box groups of BOX_BVH_MIN_BUILD or more get a fat-leaf
-BVH (`_leaf_tree`) and 128-wide leaf blocks (`_pack_leaf_blocks`), equal to
-the JAX compile's arrays.
+BVH with its coarse cut (`_leaf_tree`) and 128-wide leaf blocks
+(`_pack_leaf_blocks`; `_pack_mxu_blocks` for meshes compiled with
+RAYSNAIL_MESH_SOLVER=mxu), equal to the JAX compile's arrays.
 
 Primitives and features not ported yet raise NotImplementedError at
 compile, naming their ROADMAP item.
@@ -19,6 +20,7 @@ compile, naming their ROADMAP item.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -28,11 +30,11 @@ from raysnail_tpu_torch import ir
 from raysnail_tpu_torch import lights as lightslib
 from raysnail_tpu_torch import materials as matlib
 from raysnail_tpu_torch import textures as texlib
-from raysnail_tpu_torch.accel.bvh import build_bvh, relinearize_octants
+from raysnail_tpu_torch.accel.bvh import build_bvh, coarse_cut, relinearize_octants
 from raysnail_tpu_torch.geometry import boxes, spheres, triangles
 from raysnail_tpu_torch.geometry import transforms as tf
 from raysnail_tpu_torch.geometry.hit import Hit, combine_hits, miss
-from raysnail_tpu_torch.ops.bvh_traverse import LANES
+from raysnail_tpu_torch.ops.bvh_traverse import COARSE_MAX, LANES, MXU_LANES, NF
 from raysnail_tpu_torch.prelude.vec import Vec3
 
 # the JAX package's packing gates and layout constants, kept for parity
@@ -96,6 +98,8 @@ class Routes(NamedTuple):
     mesh_bin: str = "never"
     sphere_bvh: bool = False
     box_bvh: bool = False
+    # bvh_traverse's `packet` argument: None = its own rule at call time
+    packet: Optional[bool] = None
 
 
 def intersect(scene: Scene, arrays: SceneArrays, ray, t_min, t_max,
@@ -112,11 +116,12 @@ def intersect(scene: Scene, arrays: SceneArrays, ray, t_min, t_max,
         best = combine_hits(best, spheres.intersect(
             arrays.spheres, ray, t_min, t_max,
             need_uv=texlib.IMAGE in scene.static.tex_modes,
-            use_bvh=routes.sphere_bvh, active=active))
+            use_bvh=routes.sphere_bvh, active=active, packet=routes.packet))
     if arrays.boxes is not None:
         if routes.box_bvh and arrays.boxes.pk_bb is not None:
             best = combine_hits(best, boxes.intersect_kernel(
-                arrays.boxes, ray, t_min, t_max, active=active, t_cap=best.t))
+                arrays.boxes, ray, t_min, t_max, active=active, t_cap=best.t,
+                packet=routes.packet))
         else:
             best = combine_hits(best, boxes.intersect(arrays.boxes, ray, t_min, t_max))
     if arrays.triangles is not None:
@@ -125,7 +130,7 @@ def intersect(scene: Scene, arrays: SceneArrays, ray, t_min, t_max,
         if routes.mesh_kernel or not scene.static.tri_brute:
             tri_hit = triangles.intersect_kernel(
                 arrays.triangles, ray, t_min, t_max, active=active, t_cap=best.t,
-                bin_mode=routes.mesh_bin)
+                bin_mode=routes.mesh_bin, packet=routes.packet)
         else:
             tri_hit = triangles.intersect_brute(arrays.triangles, ray, t_min, t_max)
         best = combine_hits(best, tri_hit)
@@ -175,8 +180,10 @@ class SceneBuilder:
         self.background = (tuple(c1), tuple(c2) if c2 is not None else tuple(c1))
         return self
 
-    def compile(self, dtype=torch.float32, device="cpu") -> Scene:
-        return _compile(self, dtype, torch.device(device))
+    def compile(self, dtype=torch.float32, device="cpu", mesh_solver=None) -> Scene:
+        """mesh_solver: "cramer" or "mxu", the format of the meshes' leaf
+        blocks; None reads RAYSNAIL_MESH_SOLVER (default "cramer")."""
+        return _compile(self, dtype, torch.device(device), mesh_solver)
 
 
 class _Tables:
@@ -273,7 +280,7 @@ class _Tables:
         return idx
 
 
-def _compile(builder: SceneBuilder, dtype, device: torch.device) -> Scene:
+def _compile(builder: SceneBuilder, dtype, device: torch.device, mesh_solver=None) -> Scene:
     tables = _Tables()
     sph, box_list, mesh_list = [], [], []
 
@@ -321,10 +328,12 @@ def _compile(builder: SceneBuilder, dtype, device: torch.device) -> Scene:
     def packed(arrs):  # host pk_* arrays -> tensors on the device
         return [torch.as_tensor(a, device=device) for a in arrs]
 
+    pk_names = ("pk_bb", "pk_links", "pk_cbb", "pk_crange")
+
     # the kernel takes any sphere count: no padding rows
     sphere_group = None
     if sph:
-        pk = [None] * 3
+        pk = [None] * 5
         if len(sph) >= SPHERE_PACK_MIN:
             c = np.asarray([s[0] for s in sph], np.float64)
             r = np.asarray([s[1] for s in sph], np.float64)
@@ -335,7 +344,7 @@ def _compile(builder: SceneBuilder, dtype, device: torch.device) -> Scene:
         sphere_group = spheres.SphereGroup(
             center=vec([s[0] for s in sph]), radius=f32([s[1] for s in sph]),
             mat_id=i32([s[2] for s in sph]), active=flags(len(sph)),
-            pk_bb=pk[0], pk_links=pk[1], pk_sph=pk[2])
+            **dict(zip(pk_names, pk)), pk_sph=pk[4])
 
     box_group = None
     if box_list:
@@ -346,7 +355,7 @@ def _compile(builder: SceneBuilder, dtype, device: torch.device) -> Scene:
             offs = np.asarray([b[4] if b[4] is not None else np.zeros(3) for b in box_list])
             inv_rows = tuple(vec(rots[:, i, :]) for i in range(3))
             inv_off = vec(offs)
-        pk = [None] * 3
+        pk = [None] * 5
         if not oriented and len(box_list) >= BOX_BVH_MIN_BUILD:
             lo = np.asarray([b[0] for b in box_list], np.float64)
             hi = np.asarray([b[1] for b in box_list], np.float64)
@@ -357,17 +366,17 @@ def _compile(builder: SceneBuilder, dtype, device: torch.device) -> Scene:
         box_group = boxes.BoxGroup(
             p_min=vec([b[0] for b in box_list]), p_max=vec([b[1] for b in box_list]),
             mat_id=i32([b[2] for b in box_list]), active=flags(len(box_list)),
-            inv_rows=inv_rows, inv_off=inv_off, pk_bb=pk[0], pk_links=pk[1], pk_box=pk[2])
+            inv_rows=inv_rows, inv_off=inv_off, **dict(zip(pk_names, pk)), pk_box=pk[4])
 
     tri_group = None
     if mesh_list:
-        tri = _build_triangles(mesh_list)
+        tri = _build_triangles(mesh_list, mesh_solver)
         tri_group = triangles.TriangleGroup(
             **{k: vec(v) for k, v in tri.items() if k in ("p0", "edge_a", "edge_d", "n0",
                                                           "n1", "n2")},
             mat_id=i32(tri["mat_id"]),
-            **dict(zip(("pk_bb", "pk_links", "pk_tri"),
-                       packed((tri["pk_bb"], tri["pk_links"], tri["pk_tri"])))))
+            **dict(zip((*pk_names, "pk_tri"),
+                       packed([tri[k] for k in (*pk_names, "pk_tri")]))))
 
     light_arrays = None
     light_kinds = set()
@@ -425,10 +434,15 @@ def _compile(builder: SceneBuilder, dtype, device: torch.device) -> Scene:
 
 def _leaf_tree(bb_min, bb_max):
     """Fat-leaf BVH (leaf = LANES prims) node arrays for the traversal
-    kernel -> (pk_bb (K, M, 8) f32, pk_links (K, M, 4) i32, order, pad mask,
-    safe indices, n_blocks), where K = 8 direction-octant node orders
+    kernels -> (pk_bb (K, M, 8) f32, pk_links (K, M, 4) i32, pk_cbb
+    (K, 64, 8) f32, pk_crange (K, 64, 4) i32, n_cut (K,) int, order, pad
+    mask, safe indices, n_blocks), where K = 8 direction-octant node orders
     (front-to-back traversal) for trees of up to OCTANT_CAP nodes, else
-    K = 1 (build order)."""
+    K = 1 (build order). pk_cbb and pk_crange are the two-level walk's coarse
+    cut (accel.bvh.coarse_cut): at most 64 subtree roots' bounds and DFS node
+    ranges per order, padded as the JAX compile pads them (an inverted box,
+    a range that starts at M); n_cut counts the real entries, and the
+    port's walks stop there: the padding box passes a slab test."""
     fat = build_bvh(bb_min, bb_max, leaf_size=LANES)
     order = fat.prim_order
     pad = order < 0
@@ -445,30 +459,78 @@ def _leaf_tree(bb_min, bb_max):
         pk_links[0, :, 0] = fat.first // LANES
         pk_links[0, :, 1] = fat.count
         pk_links[0, :, 2] = fat.miss
-    return pk_bb, pk_links, order, pad, safe, len(order) // LANES
+    k_ord = pk_bb.shape[0]
+    pk_cbb = np.zeros((k_ord, COARSE_MAX, 8), np.float32)
+    pk_cbb[:, :, 0:3] = 1e30
+    pk_cbb[:, :, 3:6] = -1e30
+    pk_crange = np.full((k_ord, COARSE_MAX, 4), m, np.int32)
+    n_cut = np.zeros(k_ord, np.int64)
+    for k in range(k_ord):
+        cuts = coarse_cut(pk_links[k, :, 1], pk_links[k, :, 2], max_entries=COARSE_MAX)
+        starts = np.asarray([c[0] for c in cuts])
+        n_cut[k] = len(cuts)
+        pk_cbb[k, :len(cuts), :] = pk_bb[k, starts, :]
+        pk_crange[k, :len(cuts), 0] = starts
+        pk_crange[k, :len(cuts), 1] = np.asarray([c[1] for c in cuts])
+    return (pk_bb, pk_links, pk_cbb, pk_crange, n_cut, order, pad, safe,
+            len(order) // LANES)
 
 
 def _pack_leaf_blocks(bb_min, bb_max, fields):
     """Fat-leaf BVH + (B, NF, LANES) field blocks: fields on rows, primitives
     on lanes. Padding lanes are zeroed, so a `valid` field of ones marks the
     real primitives. fields: list of (P,) arrays, one per row; NF rounds up
-    to a multiple of 8. -> (pk_bb, pk_links, pk_prim)."""
-    pk_bb, pk_links, order, pad, safe, n_blocks = _leaf_tree(bb_min, bb_max)
+    to a multiple of 8. -> (pk_bb, pk_links, pk_cbb, pk_crange, pk_prim)."""
+    (pk_bb, pk_links, pk_cbb, pk_crange, _, order, pad, safe,
+     n_blocks) = _leaf_tree(bb_min, bb_max)
     nf = -(-len(fields) // 8) * 8
     pk = np.zeros((n_blocks, nf, LANES), np.float32)
     for i, f in enumerate(fields):
         vals = np.where(pad, 0.0, np.asarray(f, np.float64)[safe])
         pk[:, i, :] = vals.reshape(n_blocks, LANES)
-    return pk_bb, pk_links, pk
+    return pk_bb, pk_links, pk_cbb, pk_crange, pk
 
 
-def _build_triangles(mesh_list) -> dict:
+def _pack_mxu_blocks(bb_min, bb_max, nrm, q, r, e1, e2, np0, attr_fields):
+    """Leaf blocks of the "tri_mxu" kind, (B, 16, 640): lanes 0:512 the solve
+    table F (the denom | t | beta | gamma columns of the Cramer solve written
+    as one product with the ray features [d | o | o x d | 1]), lanes 512:640
+    the attribute table [valid, mat, n0, n1, n2]. -> as _pack_leaf_blocks."""
+    (pk_bb, pk_links, pk_cbb, pk_crange, _, order, pad, safe,
+     n_blocks) = _leaf_tree(bb_min, bb_max)
+
+    def ro(a):
+        """(P,) or (P, 3) -> padded and reordered (n_blocks, LANES[, 3])."""
+        vals = np.asarray(a, np.float64)[safe]
+        vals[pad] = 0.0
+        return vals.reshape((n_blocks, LANES) + vals.shape[1:])
+
+    pk = np.zeros((n_blocks, NF["tri_mxu"], MXU_LANES), np.float32)
+    nrm_o, q_o, r_o = ro(nrm), ro(q), ro(r)
+    e1_o, e2_o, np0_o = ro(e1), ro(e2), ro(np0)
+    for ax in range(3):
+        pk[:, ax, 0:128] = nrm_o[:, :, ax]          # denom: d . n
+        pk[:, 3 + ax, 128:256] = nrm_o[:, :, ax]    # t: o-part = n
+        pk[:, ax, 256:384] = q_o[:, :, ax]          # beta: d-part
+        pk[:, 6 + ax, 256:384] = e2_o[:, :, ax]     # beta: (o x d)-part = dd
+        pk[:, ax, 384:512] = r_o[:, :, ax]          # gamma: d-part
+        pk[:, 6 + ax, 384:512] = -e1_o[:, :, ax]    # gamma: (o x d)-part = -a
+    pk[:, 9, 128:256] = -np0_o                      # t: const = -(n . p0)
+    for i, f in enumerate(attr_fields):
+        pk[:, i, 512:640] = ro(f)
+    return pk_bb, pk_links, pk_cbb, pk_crange, pk
+
+
+def _build_triangles(mesh_list, solver=None) -> dict:
     """Merge all meshes into one triangle pool -> host arrays: the
     per-triangle data in thin-BVH leaf order (padding rows get mat_id -2), as
-    the JAX package orders it, and the kernel's fat-leaf BVH and leaf blocks
-    (the Cramer format)."""
+    the JAX package orders it, and the kernels' fat-leaf BVH, coarse cut and
+    leaf blocks: the Cramer format, or with solver "mxu" (None reads
+    RAYSNAIL_MESH_SOLVER here, at compile time) the feature-product format."""
     from raysnail_tpu_torch.io.obj import vertex_normals
 
+    if solver is None:
+        solver = os.environ.get("RAYSNAIL_MESH_SOLVER", "cramer")
     parts = {k: [] for k in ("p0", "p1", "p2", "n0", "n1", "n2", "mat")}
     for spec, mat in mesh_list:
         v = np.asarray(spec.vertices, np.float64)
@@ -495,13 +557,19 @@ def _build_triangles(mesh_list) -> dict:
 
     p0o, p1o, p2o = reorder(p0), reorder(p1), reorder(p2)
     e1, e2 = p0 - p1, p0 - p2
-    pk_bb, pk_links, pk_tri = _pack_leaf_blocks(
-        bb_min, bb_max,
-        [p0[:, 0], p0[:, 1], p0[:, 2], e1[:, 0], e1[:, 1], e1[:, 2],
-         e2[:, 0], e2[:, 1], e2[:, 2], np.ones(len(p0)),
-         n0[:, 0], n0[:, 1], n0[:, 2], n1[:, 0], n1[:, 1], n1[:, 2],
-         n2[:, 0], n2[:, 1], n2[:, 2], mat.astype(np.float64)])
+    ones = np.ones(len(p0))
+    normals = [n[:, c] for n in (n0, n1, n2) for c in range(3)]
+    if solver == "mxu":
+        nrm = np.cross(e1, e2)          # n = a x dd
+        packed = _pack_mxu_blocks(
+            bb_min, bb_max, nrm, np.cross(p0, e2), np.cross(e1, p0), e1, e2,
+            np.sum(nrm * p0, axis=1), [ones, mat.astype(np.float64), *normals])
+    else:
+        packed = _pack_leaf_blocks(
+            bb_min, bb_max,
+            [p0[:, 0], p0[:, 1], p0[:, 2], e1[:, 0], e1[:, 1], e1[:, 2],
+             e2[:, 0], e2[:, 1], e2[:, 2], ones, *normals, mat.astype(np.float64)])
     return dict(p0=p0o, edge_a=p0o - p1o, edge_d=p0o - p2o,
                 n0=reorder(n0), n1=reorder(n1), n2=reorder(n2),
                 mat_id=np.where(pad, -2, mat[safe]).astype(np.int32),
-                pk_bb=pk_bb, pk_links=pk_links, pk_tri=pk_tri)
+                **dict(zip(("pk_bb", "pk_links", "pk_cbb", "pk_crange", "pk_tri"), packed)))

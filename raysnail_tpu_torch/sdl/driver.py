@@ -25,8 +25,9 @@ SKY_BOTTOM = (0.3, 0.4, 0.5)
 SKY_TOP = (0.7, 0.89, 1.0)
 
 
-def build_scene(filename: str, cfg: RenderConfig, device):
-    """Parse an SDL file and lower it onto `device` -> (Scene, Camera)."""
+def build_scene(filename: str, cfg: RenderConfig, device="cuda"):
+    """Parse an SDL file and lower it onto `device` (the card, unless the
+    caller names another) -> (Scene, Camera)."""
     data = SdlParser.parse(filename)
     builder = SceneBuilder()
     for obj in data.objects:

@@ -11,6 +11,7 @@ imports numpy and the port only, so it runs on a machine without JAX.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -24,11 +25,12 @@ BLOCK = 8
 THUMB_ATOL, MEAN_ATOL = 0.01, 0.003
 
 
-def mesh_scene(cfg, device, n_seg: int = 60, n_ring: int = 12):
+def mesh_scene(cfg, device, n_seg: int = 60, n_ring: int = 12, mesh_solver=None):
     """The JAX package's mesh scene (its `mesh` anchor and its bench's
     mesh+arealight and mesh-200k cells): a (2,3) torus knot of about
     2 * n_seg * n_ring triangles, DiffuseMetal(400), a ground sphere and a
-    sphere light -> (Scene, Camera) for cfg's size on `device`."""
+    sphere light -> (Scene, Camera) for cfg's size on `device`. mesh_solver
+    as for SceneBuilder.compile."""
     from raysnail_tpu_torch import ir
     from raysnail_tpu_torch.camera import build_camera
     from raysnail_tpu_torch.scene import SceneBuilder
@@ -44,7 +46,7 @@ def mesh_scene(cfg, device, n_seg: int = 60, n_ring: int = 12):
     b.set_background((0.05, 0.05, 0.08), (0.1, 0.12, 0.2))
     cam = build_camera(look_from=(0, 1.5, 4), look_at=(0, 0, 0), fov=45,
                        width=cfg.width, height=cfg.height, device=device)
-    return b.compile(cfg.dtype, device), cam
+    return b.compile(cfg.dtype, device, mesh_solver=mesh_solver), cam
 
 
 def golden_configs(device):
@@ -108,11 +110,69 @@ def golden_configs(device):
     return out
 
 
+# the leaf kinds of the packet traversal kernel and the anchor that runs each
+PACKET_ANCHORS = {"tri": "mesh", "tri_mxu": "mesh", "box": "boxfield-kernel",
+                  "sphere": "book1-spherebvh"}
+
+
+@contextlib.contextmanager
+def traversal_env(stream=None, two_level=None):
+    """Set the traversal's call-time switches for the block: `stream` on
+    (RAYSNAIL_BVH_STREAM_BYTES=0) or off (a threshold no scene reaches),
+    `two_level` on or off (RAYSNAIL_BVH_TWO_LEVEL); None leaves a switch as
+    it is. The environment is restored after."""
+    want = {}
+    if stream is not None:
+        want["RAYSNAIL_BVH_STREAM_BYTES"] = "0" if stream else str(1 << 62)
+    if two_level is not None:
+        want["RAYSNAIL_BVH_TWO_LEVEL"] = "1" if two_level else "0"
+    before = {name: os.environ.get(name) for name in want}
+    os.environ.update(want)
+    try:
+        yield
+    finally:
+        for name, value in before.items():
+            if value is None:
+                del os.environ[name]
+            else:
+                os.environ[name] = value
+
+
+def forced_mode_configs(device):
+    """name -> (thunk, stream, two_level): each anchor above forced through
+    the packet traversal kernel in every mode, "<anchor>/packet/<kind>
+    [+stream][+two_level]"; the render runs under `traversal_env(stream,
+    two_level)`. The modes change no result (tri_mxu: beyond its rounding),
+    so each is held against its anchor's committed statistics."""
+    base = golden_configs(device)
+    out = {}
+    for kind, anchor in PACKET_ANCHORS.items():
+        for stream in (False, True):
+            for two_level in (False, True):
+                def thunk(kind=kind, anchor=anchor):
+                    if anchor == "mesh":
+                        cfg = base[anchor]()[2]
+                        scene, cam = mesh_scene(
+                            cfg, device, mesh_solver="mxu" if kind == "tri_mxu" else "cramer")
+                        cfg, seed = cfg.replace(mesh_pallas="force"), 7
+                    else:
+                        scene, cam, cfg, seed = base[anchor]()
+                    return scene, cam, cfg.replace(bvh_packet="force"), seed
+                name = (f"{anchor}/packet/{kind}" + ("+stream" if stream else "")
+                        + ("+two_level" if two_level else ""))
+                out[name] = (thunk, stream, two_level)
+    return out
+
+
 def render_anchor(name: str, device="cpu") -> np.ndarray:
+    """Render anchor `name`, or one of `forced_mode_configs`' entries."""
     from raysnail_tpu_torch.render import render
 
-    scene, camera, cfg, seed = golden_configs(device)[name]()
-    return render(scene, camera, cfg, seed=seed)
+    entries = golden_configs(device)
+    thunk, *modes = (entries[name],) if name in entries else forced_mode_configs(device)[name]
+    scene, camera, cfg, seed = thunk()
+    with traversal_env(*modes):
+        return render(scene, camera, cfg, seed=seed)
 
 
 def anchor_stats(img: np.ndarray) -> dict:
@@ -137,7 +197,7 @@ def check_anchor(name: str, golden: dict, device="cpu") -> dict:
     within THUMB_ATOL and MEAN_ATOL. -> {"dthumb", "dmean"}; raises
     AssertionError on drift."""
     fresh = anchor_stats(render_anchor(name, device))
-    ref = golden[name]
+    ref = golden[name.split("/")[0]]  # a forced-mode entry is held to its anchor
     assert fresh["thumb"].shape == ref["thumb"].shape, (
         f"{name}: thumbnail shape {fresh['thumb'].shape} vs {ref['thumb'].shape}")
     dthumb = float(np.abs(fresh["thumb"] - ref["thumb"]).max())

@@ -10,6 +10,9 @@ Tolerance: none. The kernels are built with -fmad=false, so they round
 every product and sum as their plain versions' separate elementwise kernels
 do: the sphere sweep's t bit-equal and idx equal; the BVH traversal's t and
 every attribute bit-equal, so the same winner on every ray, ties included.
+That holds for both traversal kernels, and for the packet kernel in every
+kind (tri, tri_mxu, box, sphere), with `stream` and `two_level` on and off
+and at every ring depth.
 """
 
 import numpy as np
@@ -17,6 +20,7 @@ import pytest
 import torch
 
 from raysnail_tpu_torch import ir
+from raysnail_tpu_torch import scene as scene_mod
 from raysnail_tpu_torch.ops import bvh_traverse as bt
 from raysnail_tpu_torch.ops import sphere_min_t as smt
 from raysnail_tpu_torch.scene import SceneBuilder
@@ -85,14 +89,16 @@ def test_sphere_kernel_checks_its_inputs(cuda_device):
         smt.sphere_min_t(o, d, c, r2, act.float(), TMIN, TMAX)
 
 
-def bvh_case(kind, seed, n_rays, device):
+def bvh_case(kind, seed, n_rays, device, with_cut=False):
     """A packed group of the kind, compiled by the port on `device`, and
     rays: random origins and directions, a finite t_cap on a third of them,
-    dead lanes (t_cap = -1) on a tenth."""
+    dead lanes (t_cap = -1) on a tenth. "tri_mxu" is the "tri" mesh in the
+    feature-product format; with_cut=True appends the coarse cut (pk_cbb,
+    pk_crange)."""
     rng = np.random.default_rng(seed)
     b = SceneBuilder()
     mat = ir.Lambertian(ir.Constant((0.5, 0.5, 0.5)))
-    if kind == "tri":
+    if kind in ("tri", "tri_mxu"):
         v, f, nrm = torus_knot(n_seg=200, n_ring=24)
         b.add(ir.Mesh(vertices=v, indices=f, normals=nrm, material=mat))
         group, prim, span = "triangles", "pk_tri", 3.0
@@ -106,7 +112,8 @@ def bvh_case(kind, seed, n_rays, device):
         for c in rng.uniform(-20, 20, (8192, 3)):
             b.add(ir.Sphere(tuple(c), float(rng.uniform(0.2, 0.6)), mat))
         group, prim, span = "spheres", "pk_sph", 25.0
-    g = getattr(b.compile(device=device).arrays, group)
+    solver = "mxu" if kind == "tri_mxu" else "cramer"
+    g = getattr(b.compile(device=device, mesh_solver=solver).arrays, group)
     o = rng.uniform(-span, span, (n_rays, 3)).astype(np.float32)
     if kind == "box":  # a sixth start inside box (0, 0) of the grid
         o[: n_rays // 6] = rng.uniform(-5.9, -5.1, (n_rays // 6, 3))
@@ -122,7 +129,7 @@ def bvh_case(kind, seed, n_rays, device):
                      for i in range(3))
 
     return (cols(o), cols(d), torch.from_numpy(cap).to(device), g.pk_bb, g.pk_links,
-            getattr(g, prim))
+            getattr(g, prim), *((g.pk_cbb, g.pk_crange) if with_cut else ()))
 
 
 @pytest.mark.cuda
@@ -155,3 +162,76 @@ def test_bvh_kernel_checks_its_inputs(cuda_device):
         bt.bvh_traverse(o, d, cap, bb, links.cpu(), prim, TMIN, TMAX, kind="sphere")
     with pytest.raises(ValueError, match="pk_prim"):
         bt.bvh_traverse(o, d, cap, bb, links, prim, TMIN, TMAX, kind="tri")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_level", [False, True], ids=["one-level", "two-level"])
+@pytest.mark.parametrize("stream", [False, True], ids=["resident", "stream"])
+@pytest.mark.parametrize("kind", ["tri", "tri_mxu", "box", "sphere"])
+def test_packet_kernel_matches_plain(cuda_device, kind, stream, two_level):
+    *args, cbb, crange = bvh_case(kind, 5, 20_011, cuda_device, with_cut=True)
+    key = bt.launch_key(kind, True, stream, two_level)
+    before = bt.bvh_traverse.launches[key]
+    out = bt.bvh_traverse(*args, TMIN, TMAX, kind=kind, packet=True, stream=stream,
+                          two_level=two_level, cbb=cbb, crange=crange)
+    assert bt.bvh_traverse.launches[key] == before + 1
+    ref = bt.bvh_traverse_plain(*args, TMIN, TMAX, kind=kind, packet=True,
+                                two_level=two_level, cbb=cbb, crange=crange)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    t, cap = out[0], args[2]
+    assert int((t < 1e30).sum()) > 1000
+    assert bool((t[cap <= 0] == 1e30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tri", "tri_mxu"])
+def test_packet_kernel_gives_the_same_at_every_ring_depth(cuda_device, kind, monkeypatch):
+    *args, cbb, crange = bvh_case(kind, 6, 10_007, cuda_device, with_cut=True)
+    call = lambda: bt.bvh_traverse(*args, TMIN, TMAX, kind=kind, stream=True,
+                                   two_level=True, cbb=cbb, crange=crange)
+    ref = call()
+    for depth in (1, 2, 3, bt.MAX_DEPTH):
+        monkeypatch.setitem(bt.RING_DEPTH, kind, depth)
+        for a, b in zip(call(), ref):
+            assert torch.equal(a, b)
+    monkeypatch.setitem(bt.RING_DEPTH, kind, bt.MAX_DEPTH + 1)
+    with pytest.raises(ValueError, match="ring depth"):
+        call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_level", [False, True], ids=["one-level", "two-level"])
+@pytest.mark.parametrize("stream", [False, True], ids=["resident", "stream"])
+@pytest.mark.parametrize("kind", ["tri", "tri_mxu"])
+def test_packet_kernel_matches_plain_on_a_single_order_tree(cuda_device, kind, stream,
+                                                            two_level, monkeypatch):
+    """Above the node cap a tree keeps one node order (K = 1), walked in
+    build order by every packet."""
+    monkeypatch.setattr(scene_mod, "OCTANT_CAP", 50)
+    *args, cbb, crange = bvh_case(kind, 8, 10_007, cuda_device, with_cut=True)
+    assert args[3].shape[0] == 1 and args[3].shape[1] > 50
+    out = bt.bvh_traverse(*args, TMIN, TMAX, kind=kind, packet=True, stream=stream,
+                          two_level=two_level, cbb=cbb, crange=crange)
+    ref = bt.bvh_traverse_plain(*args, TMIN, TMAX, kind=kind, packet=True,
+                                two_level=two_level, cbb=cbb, crange=crange)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert int((out[0] < 1e30).sum()) > 500
+
+
+@pytest.mark.cuda
+def test_packet_kernel_is_picked_when_a_mode_needs_it(cuda_device):
+    *args, cbb, crange = bvh_case("tri", 7, 5_000, cuda_device, with_cut=True)
+    before = dict(bt.bvh_traverse.launches)
+    bt.bvh_traverse(*args, TMIN, TMAX, kind="tri")                      # the per-ray kernel
+    bt.bvh_traverse(*args, TMIN, TMAX, kind="tri", stream=True)         # needs the packet kernel
+    bt.bvh_traverse(*args, TMIN, TMAX, kind="tri", two_level=True, cbb=cbb, crange=crange)
+    grew = {k for k, v in bt.bvh_traverse.launches.items() if v == before[k] + 1}
+    assert grew == {"tri", "packet/tri+stream", "packet/tri+two_level"}
+    with pytest.raises(ValueError, match="needs the packet kernel"):
+        bt.bvh_traverse(*args, TMIN, TMAX, kind="tri", stream=True, packet=False)
+    with pytest.raises(ValueError, match="needs the coarse cut"):
+        bt.bvh_traverse(*args, TMIN, TMAX, kind="tri", two_level=True)

@@ -104,8 +104,11 @@ def test_frame_step_counts_iterations_and_refuses_unported_settings():
     assert sums.x.shape == (16 * 8,)
     with pytest.raises(NotImplementedError, match="ROADMAP M18"):
         make_frame_step(scene, cfg.replace(rng="threefry"))
-    with pytest.raises(NotImplementedError, match="ROADMAP M8"):
-        render_passes(scene, camera, cfg.replace(passes=2))
+    with pytest.raises(NotImplementedError, match="ROADMAP M7"):
+        render_passes(scene, camera, cfg.replace(passes=2, path_regen="never"))
+    with pytest.raises(NotImplementedError, match="passes=0"):
+        render_passes(scene, camera, cfg.replace(passes=0))
+    assert render_passes(scene, camera, cfg.replace(passes=2)).shape == (8, 16, 3)
 
 
 def test_cli_writes_a_png(tmp_path, capsys):
