@@ -7,8 +7,8 @@ It drives `raysnail_tpu_torch` (never the JAX package) through these phases
 and exits non-zero if any fails:
 
   1. device   require CUDA; print the card's name and power limit
-  2. build    build every kernel of the render paths from csrc/ with nvcc
-              (sphere_min_t.cu, bvh_traverse.cu, bvh_packet.cu), and the host
+  2. build    build every kernel from csrc/ with nvcc (sphere_min_t.cu,
+              bvh_traverse.cu, bvh_packet.cu, bvh_probes.cu), and the host
               BVH builder with g++, all started together; the seconds, and
               each kernel's registers and spills (-Xptxas -v)
   3. kernels  each kernel against its plain PyTorch version on the card, at
@@ -17,22 +17,33 @@ and exits non-zero if any fails:
               bit against the plain version, then `stream` and `two_level`,
               alone and together, bit for bit against the kernel with both
               off; tri_mxu's t against tri's within MXU_RTOL on all but
-              MXU_EDGE_SHARE of the rays that both hit
-  4. golden   the anchors example.sdl, mesh, mesh-binned, boxfield-kernel
-              and book1-spherebvh on the card, against the committed
-              tests/golden/golden.npz, with the kernel launches of each; then
-              the mesh, box and sphere anchors forced through the packet
-              kernel in every (kind, stream, two_level) mode, each against
-              its anchor's statistics
-  5. main     the canonical frame, example.sdl at 800x500@64spp (a warm-up
-              through the CLI, then a timed run of the same calls); the
-              mesh-200k frame, a 204,800-triangle knot at 320x200@16spp,
-              depth 6, through the per-ray kernel (with "entry" binning and
-              with none) and through the packet kernel (tri, tri with
-              two_level, tri_mxu, tri_mxu with stream), and once through the
-              tile-ordered sample-step path (render_sums), held against the
-              frame step's image; the mesh-800k frame, 819,200 triangles,
-              whose leaf blocks turn `stream` on by the auto rule and whose
+              MXU_EDGE_SHARE of the rays that both hit. sphere_min_t's moving
+              form on the moving book 1 frame's primary rays, bit for bit.
+              Every traversal probe (ray I/O, walk, sweep, walk latency, the
+              V0-V8 bisect) against its plain version, on the probes' own
+              case knot-9600 and on mesh-200k: integers and min-t bit for
+              bit, the near accumulator within probes.ACC_RTOL
+  4. golden   the anchors example.sdl, mesh, mesh-binned, boxfield-kernel,
+              book1-spherebvh and book1 on the card, against the committed
+              tests/golden/golden.npz, with the kernel launches of each;
+              cornell is rendered and its drift printed, held by its mean only
+              (one thumbnail block of it reads 0.010036 on the CPU and on the
+              card alike, an open fault); then the mesh, box and sphere
+              anchors forced through the packet kernel in every (kind, stream,
+              two_level) mode, each against its anchor's statistics
+  5. main     the probes' entry point, probes.main(["all", "--case",
+              "mesh-200k"]), with every probe's launch count read after it;
+              the canonical frame, example.sdl at 800x500@64spp (a warm-up
+              through the CLI, then a timed run of the same calls); one
+              sdl/transforms.sdl frame (its ellipsoid is a quadric) and one
+              book 1 frame with moving balls and an open shutter, both at
+              800x500@16spp; the mesh-200k frame, a 204,800-triangle knot at
+              320x200@16spp, depth 6, through the per-ray kernel (with
+              "entry" binning and with none) and through the packet kernel
+              (tri, tri with two_level, tri_mxu and tri_mxu with stream), and
+              once through the tile-ordered sample-step path (render_sums),
+              held against the frame step's image; the mesh-800k frame,
+              819,200 triangles, whose leaf blocks turn `stream` on by the auto rule and whose
               tree keeps one node order, with the packet kernel held against
               its plain version on 8,192 of its primary rays; the
               9,600-triangle mesh+arealight frame; a passes=2 render of
@@ -71,7 +82,11 @@ MESH_W, MESH_H, MESH_SPP, MESH_DEPTH, MESH_SEED = 320, 200, 16, 6, 1  # bench.py
 KNOT_200K, KNOT_800K, KNOT_AREA = (1600, 64), (6400, 64), (200, 24)  # (n_seg, n_ring)
 TIMING_RUNS = 20
 PLAIN_RUNS = 3                               # the plain BVH walk takes up to seconds
-ANCHORS = ("example.sdl", "mesh", "mesh-binned", "boxfield-kernel", "book1-spherebvh")
+ANCHORS = ("example.sdl", "mesh", "mesh-binned", "boxfield-kernel", "book1-spherebvh",
+           "book1")
+OPEN_ANCHORS = ("cornell",)                  # rendered and reported; thumbnail not held yet
+TRANSFORMS = os.path.join(ROOT, "sdl", "transforms.sdl")
+SMALL_SPP = 16                               # the transforms.sdl and moving book 1 frames
 BIG = 1e30
 SUMS_ATOL = 1e-3                             # render_sums' image against the frame step's
 PASSES_SAMPLES = 16                          # the passes=2 frame's requested spp
@@ -157,23 +172,26 @@ def sphere_case(gen: torch.Generator, n: int, s: int, device, duplicate=False):
             (r * r).contiguous(), active)
 
 
-def check_sphere_kernel(args, t_min, t_max, label: str, time_it: bool):
+def check_sphere_kernel(args, t_min, t_max, label: str, time_it: bool, motion=None):
     """Kernel vs plain on the same inputs: idx equal, t bit-equal (the kernel
-    is built with -fmad=false, so both round every operation alike)."""
+    is built with -fmad=false, so both round every operation alike). motion =
+    {"speed_xyz", "time"} checks the moving form."""
     from raysnail_tpu_torch.ops.sphere_min_t import sphere_min_t, sphere_min_t_plain
 
-    before = sphere_min_t.launches
-    t_k, i_k = sphere_min_t(*args, t_min, t_max)
-    t_p, i_p = sphere_min_t_plain(*args, t_min, t_max)
+    motion = motion or {}
+    before = (sphere_min_t.launches, sphere_min_t.moving_launches)
+    t_k, i_k = sphere_min_t(*args, t_min, t_max, **motion)
+    t_p, i_p = sphere_min_t_plain(*args, t_min, t_max, **motion)
     torch.cuda.synchronize()
     err = float((t_k - t_p).abs().max())
     same_idx = bool(torch.equal(i_k, i_p))
     n_hit = int((t_p < BIG).sum())
     out = {"max_abs_err": err, "idx_equal": same_idx, "hits": n_hit}
     if time_it:
-        out["ms"] = time_ms(lambda: sphere_min_t(*args, t_min, t_max))
-        out["plain_ms"] = time_ms(lambda: sphere_min_t_plain(*args, t_min, t_max))
-    sphere_min_t.launches = before  # comparison launches are not the main path's
+        out["ms"] = time_ms(lambda: sphere_min_t(*args, t_min, t_max, **motion))
+        out["plain_ms"] = time_ms(lambda: sphere_min_t_plain(*args, t_min, t_max, **motion))
+    # comparison launches are not the main path's
+    sphere_min_t.launches, sphere_min_t.moving_launches = before
     n, s = args[0][0].shape[0], args[3].shape[0]
     phase("kernels", f"sphere_min_t {label}: N={n} S={s} hits={n_hit} "
           f"max|dt|={err!r} idx_equal={same_idx}"
@@ -352,17 +370,22 @@ class Counters:
     """Every kernel's launch count: reset to 0 before a run, read after."""
 
     def __init__(self):
+        from raysnail_tpu_torch.ops import bvh_probes as bp
         from raysnail_tpu_torch.ops import bvh_traverse as bt
         from raysnail_tpu_torch.ops import sphere_min_t as smt
-        self.smt, self.bt = smt.sphere_min_t, bt.bvh_traverse
+        self.smt, self.bt, self.bp = smt.sphere_min_t, bt.bvh_traverse, bp
 
     def reset(self):
-        self.smt.launches = 0
+        self.smt.launches = self.smt.moving_launches = 0
         self.bt.launches = {k: 0 for k in self.bt.launches}
+        for k in self.bp.launches:
+            self.bp.launches[k] = 0
 
     def read(self) -> dict:
         return {"sphere_min_t": self.smt.launches,
-                **{f"bvh_traverse/{k}": v for k, v in self.bt.launches.items()}}
+                "sphere_min_t/moving": self.smt.moving_launches,
+                **{f"bvh_traverse/{k}": v for k, v in self.bt.launches.items()},
+                **{f"probe/{k}": v for k, v in self.bp.launches.items()}}
 
 
 def main() -> int:
@@ -384,10 +407,11 @@ def main() -> int:
 
 def run(device: torch.device, card: str, profile: bool) -> list:
     """Phases 2-6 on `device`; -> the kernels' JSON records."""
-    from raysnail_tpu_torch import cli, integrator
+    from raysnail_tpu_torch import cli, integrator, probes
     from raysnail_tpu_torch.accel.native import build as native
     from raysnail_tpu_torch.config import RenderConfig
     from raysnail_tpu_torch.ops import _nvcc
+    from raysnail_tpu_torch.ops import bvh_probes as bp
     from raysnail_tpu_torch.ops import bvh_traverse as bt
     from raysnail_tpu_torch.ops import sphere_min_t as smt
     from raysnail_tpu_torch.geometry import spheres as sphlib
@@ -395,6 +419,7 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     from raysnail_tpu_torch import scene as scene_mod
     from raysnail_tpu_torch.render import render, render_passes
     from raysnail_tpu_torch.scene import SceneBuilder
+    from raysnail_tpu_torch.scenes import book1
     from raysnail_tpu_torch import ir
     from raysnail_tpu_torch.sdl.driver import build_scene
     from raysnail_tpu_torch.utils import golden
@@ -404,6 +429,7 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     jobs = {"sphere_min_t.cu": lambda: smt.build(verbose=True),
             "bvh_traverse.cu": lambda: bt.build(verbose=True),
             "bvh_packet.cu": lambda: bt.build_packet(verbose=True),
+            "bvh_probes.cu": lambda: bp.build(verbose=True),
             "bvh_builder.cpp": native.build}
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {name: pool.submit(job) for name, job in jobs.items()}
@@ -440,6 +466,25 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     phase("kernels", f"sphere_min_t (c): every tie went to the first copy "
           f"({int(hit_c.sum())} hits)")
     smt_err = max(r["max_abs_err"] for r in (res_a, res_b, res_c))
+    # (d) the moving form at the moving book 1 frame's shape: its 478 balls
+    # with their speeds x one frame of primary rays with their shutter times
+    vcfg = RenderConfig(width=WIDTH, height=HEIGHT, samples=SMALL_SPP)
+    vscene = book1.balls_scene(7, need_speed=True).compile(vcfg.dtype, device)
+    vcam = book1.balls_camera(WIDTH, HEIGHT, need_shutter=True, device=device)
+    vsph = vscene.arrays.spheres
+    vray = primary_rays(vcam, WIDTH, HEIGHT, vcfg.sqrt_spp, device)
+    args_d = (tuple(vray.origin), tuple(vray.direction), tuple(vsph.center),
+              (vsph.radius * vsph.radius).contiguous(), vsph.active)
+    motion = {"speed_xyz": tuple(vsph.speed), "time": vray.time.contiguous()}
+    res_d, (t_d, _) = check_sphere_kernel(args_d, vcfg.t_min, vcfg.t_max,
+                                          "(d) moving book 1 primary rays, moving form",
+                                          time_it=True, motion=motion)
+    t_still = smt.sphere_min_t(*args_d, vcfg.t_min, vcfg.t_max)[0]
+    moved = int((t_still != t_d).sum())
+    phase("kernels", f"sphere_min_t (d): the motion changes t on {moved} of {t_d.numel()} rays "
+          f"(shutter times up to {float(vray.time.max())!r})")
+    if not vscene.static.moving or vsph.pk_bb is not None or moved == 0:
+        raise AssertionError("the moving book 1 scene does not move, or it was packed")
 
     # bvh_traverse, kind "tri": the mesh-200k scene (its host compile is timed)
     mcfg = RenderConfig(width=MESH_W, height=MESH_H, samples=MESH_SPP, max_depth=MESH_DEPTH)
@@ -528,6 +573,30 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     if mxu_edge > MXU_EDGE_SHARE * int(both.sum()) or mxu_mask > MXU_EDGE_SHARE * ta.numel():
         raise AssertionError("tri_mxu disagrees with tri beyond its stated tolerance")
 
+    # the traversal probes on their own case and on mesh-200k: probes.run
+    # holds each against its plain version and raises on a disagreement
+    probe_records, probe_cases, probe_plain = {}, {}, {}
+    for case_name in probes.CASES:
+        t0 = time.perf_counter()
+        pcase = probe_cases[case_name] = probes.build_case(case_name, "cuda")
+        probe_plain[case_name] = {}  # the plain versions' results, kept for phase 5
+        ptri = pcase.tri
+        phase("kernels", f"probes, case {case_name}: rays={pcase.n} nodes={ptri.pk_bb.shape[1]} "
+              f"orders={ptri.pk_bb.shape[0]} blocks={ptri.pk_tri.shape[0]}, sweep-all sweeps "
+              f"{pcase.sweep_blocks} blocks")
+        probe_records[case_name] = probes.run(
+            "all", pcase, out=lambda line, c=case_name: phase("kernels", f"probe {c} {line}"),
+            plain=probe_plain[case_name])
+        n_equal = sum(r["bit_equal"] for r in probe_records[case_name])
+        phase("kernels", f"probes, case {case_name}: {len(probe_records[case_name])} probes "
+              f"held against their plain versions, {n_equal} of them bit for bit in every "
+              f"output, in {time.perf_counter() - t0:.2f} s")
+        if len(probe_records[case_name]) != len(bp.launch_keys()):
+            raise AssertionError("a probe was not run")
+    if tuple(ptri.pk_bb.shape) != tuple(tri.pk_bb.shape):
+        raise AssertionError("the probes' mesh-200k is not the render path's mesh-200k")
+    counters.reset()
+
     # 4. golden anchors on the card ------------------------------------------
     ref = golden.load_golden()
     anchor_launches = {}
@@ -538,6 +607,13 @@ def run(device: torch.device, card: str, profile: bool) -> list:
         phase("golden", f"{name}: max|d thumb|={res['dthumb']!r} (<= {golden.THUMB_ATOL}), "
               f"max|d mean|={res['dmean']!r} (<= {golden.MEAN_ATOL}); launches "
               f"{nonzero(anchor_launches[name])}")
+    for name in OPEN_ANCHORS:
+        res = golden.anchor_drift(name, ref, device)
+        phase("golden", f"{name} (open fault, thumbnail not held): max|d thumb|="
+              f"{res['dthumb']!r} with {res['blocks_beyond']} blocks beyond {golden.THUMB_ATOL}, "
+              f"max|d mean|={res['dmean']!r} (<= {golden.MEAN_ATOL})")
+        if res["dmean"] > golden.MEAN_ATOL:
+            raise AssertionError(f"{name}: global mean drifted by {res['dmean']}")
     want = {"mesh": "bvh_traverse/tri", "mesh-binned": "bvh_traverse/tri",
             "boxfield-kernel": "bvh_traverse/box", "book1-spherebvh": "bvh_traverse/sphere",
             **{name: "bvh_traverse/" + name.split("/", 1)[1]
@@ -547,6 +623,20 @@ def run(device: torch.device, card: str, profile: bool) -> list:
             raise AssertionError(f"anchor {name} did not launch {key}")
 
     # 5. main paths ------------------------------------------------------------
+    # the probes' entry point: every probe on the card's case, held against
+    # the plain versions' results that phase 3 computed on the same case
+    counters.reset()
+    t0 = time.perf_counter()
+    rc = probes.main(["all", "--case", "mesh-200k"], case=probe_cases["mesh-200k"],
+                     plain=probe_plain["mesh-200k"])
+    torch.cuda.synchronize()
+    probe_launches = counters.read()
+    phase("main", f"probes.main(all, mesh-200k) returned {rc} in "
+          f"{time.perf_counter() - t0:.2f} s; launches "
+          f"{ {k: v for k, v in probe_launches.items() if k.startswith('probe/')} }")
+    if rc != 0 or any(probe_launches[f"probe/{k}"] == 0 for k in bp.launch_keys()):
+        raise AssertionError("the probes' entry point did not launch every probe")
+
     argv = ["--scene", SCENE, "-w", str(WIDTH), "--height", str(HEIGHT),
             "--samples", str(SAMPLES), "--device", "cuda"]
     with tempfile.TemporaryDirectory() as tmp:
@@ -592,6 +682,33 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     if (len(seen) != 2 or redone == 0 or not np.isfinite(img).all()
             or img.shape != (HEIGHT, WIDTH, 3)):
         raise AssertionError("render_passes(passes=2) did not run its second pass")
+
+    # the dense-primitive modules: transforms.sdl (a quadric, an oriented
+    # box) and book 1 with moving balls (sphere_min_t's moving form)
+    tcfg = RenderConfig(width=WIDTH, height=HEIGHT, samples=SMALL_SPP)
+    tscene, tcam = build_scene(TRANSFORMS, tcfg, device)
+    small = {"transforms.sdl": (tscene, tcam, tcfg), "book 1, moving balls": (vscene, vcam, vcfg)}
+    small_launches = {}
+    for label, (sc, cam_, run_cfg) in small.items():
+        render(sc, cam_, run_cfg.replace(samples=4), seed=0)  # warm-up
+        img, seconds, iterations, launches, peak = frame(sc, cam_, run_cfg, 0, counters)
+        small_launches[label] = launches
+        a = sc.arrays
+        phase("main", f"{label} {WIDTH}x{HEIGHT}@{run_cfg.effective_samples}spp on {card}: "
+              f"{seconds!r} s, "
+              f"{WIDTH * HEIGHT * run_cfg.effective_samples / seconds / 1e6!r} Mprimary-rays/s, "
+              f"{iterations} shade iterations, launches {nonzero(launches)}, peak {peak} B; "
+              f"groups: spheres {0 if a.spheres is None else a.spheres.radius.shape[0]}, boxes "
+              f"{0 if a.boxes is None else a.boxes.mat_id.shape[0]}, quadrics "
+              f"{0 if a.quadrics is None else a.quadrics.qa.shape[0]}; image mean "
+              f"{img.mean()!r}, std {img.std()!r}")
+        if launches["sphere_min_t"] < iterations:
+            raise AssertionError(f"{label}: the render did not go through sphere_min_t")
+    if tscene.arrays.quadrics is None:
+        raise AssertionError("transforms.sdl's ellipsoid did not lower to a quadric")
+    moving_launches = small_launches["book 1, moving balls"]["sphere_min_t/moving"]
+    if moving_launches == 0 or small_launches["transforms.sdl"]["sphere_min_t/moving"] != 0:
+        raise AssertionError("the moving form ran in the wrong frame")
 
     # mesh-200k at full size: a warm-up frame through render(), then one
     # timed frame per configuration, per-ray and packet kernels side by side
@@ -746,12 +863,19 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     src = "raysnail_tpu_torch/csrc/"
     tpu = "raysnail_tpu/ops/bvh_pallas.py:"
     n_a, s_a = args_a[0][0].shape[0], args_a[3].shape[0]
+    n_d, s_d = args_d[0][0].shape[0], args_d[3].shape[0]
     records = [
         {"name": "sphere_min_t", "route": "cuda", "source": src + "sphere_min_t.cu",
          "replaces": "raysnail_tpu/ops/sphere_pallas.py:30",
          "launches": smt_launches, "max_abs_err": smt_err,
          "ms": res_a["ms"], "plain_ms": res_a["plain_ms"],
-         **bound(n_a * 8 * 4 + s_a * 5 * 4, n_a * s_a * PAIR_FLOPS["sphere"])}]
+         **bound(n_a * 8 * 4 + s_a * 5 * 4, n_a * s_a * PAIR_FLOPS["sphere"])},
+        # 6 more operations per pair move the center; a time per ray, a speed per sphere
+        {"name": "sphere_min_t/moving", "route": "cuda", "source": src + "sphere_min_t.cu",
+         "replaces": "raysnail_tpu/geometry/spheres.py:38",
+         "launches": moving_launches, "max_abs_err": res_d["max_abs_err"],
+         "ms": res_d["ms"], "plain_ms": res_d["plain_ms"],
+         **bound(n_d * 9 * 4 + s_d * 8 * 4, n_d * s_d * (PAIR_FLOPS["sphere"] + 6))}]
     per_ray = {"tri": (res_tri, tri_launches),
                "box": (res_box, anchor_launches["boxfield-kernel"]["bvh_traverse/box"]),
                "sphere": (res_sph, anchor_launches["book1-spherebvh"]["bvh_traverse/sphere"])}
@@ -775,6 +899,23 @@ def run(device: torch.device, card: str, profile: bool) -> list:
                             "max_abs_err": res["err"], "ms": res["ms"][(stream, two_level)],
                             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                             "bound_by": res["bound_by"]})
+    # the probes, at the entry point's case (mesh-200k): the TPU probe each
+    # replaces, by the line of its pallas_call
+    ab, lat = "scripts/kern_ab.py:", "scripts/kern_lat.py:"
+    replaces = {"io/soa": ab + "170", "io/rows": ab + "196", "io/transpose": ab + "216",
+                "io/packed": ab + "249", "walk": ab + "178", "sweep": ab + "174",
+                "latency/w32": lat + "84", "latency/w128": lat + "84",
+                "latency/w1024": lat + "84", "latency/cap": lat + "185",
+                "latency/buf": lat + "185", "variant": "scripts/kern_walkvar.py:259"}
+    for rec in probe_records["mesh-200k"]:
+        key = rec["launch_key"]
+        records.append({"name": f"probe/{key}", "route": "cuda", "source": src + "bvh_probes.cu",
+                        "replaces": replaces.get(key) or replaces[key.split("/")[0]],
+                        "launches": probe_launches[f"probe/{key}"],
+                        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                        "plain_ms": rec["plain_ms"], **bound(rec["bytes"], rec["flops"]),
+                        # per launch over probes.LATENCY_REPS launches back to back
+                        "ms_back_to_back": rec["ms_back_to_back"]})
     for rec in records:
         rec["library_ms"] = None  # no single PyTorch call computes any of these
         if rec["launches"] == 0:

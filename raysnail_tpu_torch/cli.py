@@ -1,7 +1,8 @@
 """CLI frontend mirroring the reference binary's flags
 (src/bin/raysnail.rs:452-533): --scene/-f, --samples/-s, --passes/-p, -w,
 --height, --outfile/-o. Defaults: 800x600, samples 122, passes 1,
-output.png.
+output.png. --checkpoint PATH (single-pass renders) writes the resumable
+render state there after every chunk and resumes from it when it exists.
 
 --device picks where the render runs: `cuda` (the default) runs the
 hand-written kernels on the card; `cpu` runs their plain PyTorch versions,
@@ -33,10 +34,14 @@ def main(argv=None):
     ap.add_argument("--depth", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--checkpoint", default=None,
+                    help="write/read resumable render state (.npz) at this path")
     ap.add_argument("--mis", action="store_true",
                     help="physically-correct one-sample MIS instead of the "
                          "reference-compat estimator")
     args = ap.parse_args(argv)
+
+    import os
 
     import torch
     from PIL import Image
@@ -66,7 +71,15 @@ def main(argv=None):
 
     sync()
     t0 = time.time()
-    img = render_passes(scene, camera, cfg, seed=args.seed, progress=progress)
+    if args.checkpoint and args.passes == 1:
+        from raysnail_tpu_torch.painter import RenderSession, RenderState
+
+        sess = RenderSession(scene, camera, cfg, seed=args.seed,
+                             checkpoint_path=args.checkpoint)
+        resume = RenderState.load(args.checkpoint) if os.path.exists(args.checkpoint) else None
+        img = sess.render(target=progress, resume=resume)
+    else:
+        img = render_passes(scene, camera, cfg, seed=args.seed, progress=progress)
     sync()
     dt = time.time() - t0
     rays = cfg.width * cfg.height * cfg.effective_samples * args.passes

@@ -15,13 +15,9 @@ from raysnail_tpu_torch import lights as lightslib
 from raysnail_tpu_torch import materials as matlib
 from raysnail_tpu_torch import textures as texlib
 from raysnail_tpu_torch.camera import Camera
-from raysnail_tpu_torch.geometry import boxes, spheres, triangles
+from raysnail_tpu_torch.geometry import boxes, quadrics, rects, spheres, triangles
 from raysnail_tpu_torch.prelude.vec import Vec3
 from raysnail_tpu_torch.scene import Background, SceneArrays
-
-# SceneArrays fields of the JAX package that this port does not carry yet
-_NOT_PORTED = ("rects", "quadrics")
-
 
 def _leaf(x, device):
     if x is None:
@@ -30,7 +26,10 @@ def _leaf(x, device):
         return Vec3(*(_leaf(c, device) for c in (x.x, x.y, x.z)))
     if isinstance(x, tuple):  # e.g. oriented boxes' inv_rows
         return tuple(_leaf(c, device) for c in x)
-    return torch.as_tensor(np.array(x), device=device)  # a writable copy
+    x = np.array(x)  # a writable copy
+    if x.dtype == np.uint32:  # Perlin seeds: uint32 values held in int64, as prelude.rng
+        x = x.astype(np.int64)
+    return torch.as_tensor(x, device=device)
 
 
 def _by_name(cls, src, device):
@@ -42,16 +41,11 @@ def _by_name(cls, src, device):
 
 def scene_arrays_from_numpy(arrays, device) -> SceneArrays:
     """The JAX package's compiled SceneArrays (numpy leaves) -> the port's."""
-    for name in _NOT_PORTED:
-        if getattr(arrays, name, None) is not None:
-            raise NotImplementedError(f"scene arrays hold {name}: not ported yet")
-    if arrays.spheres is not None and np.any(np.asarray(arrays.spheres.speed.x) != 0):
-        raise NotImplementedError("moving spheres are not ported yet")
-    if arrays.textures.atlas is not None or arrays.textures.perlin_seed is not None:
-        raise NotImplementedError("image and Perlin textures are not ported yet")
     return SceneArrays(
         spheres=_by_name(spheres.SphereGroup, arrays.spheres, device),
         boxes=_by_name(boxes.BoxGroup, arrays.boxes, device),
+        rects=_by_name(rects.RectGroup, arrays.rects, device),
+        quadrics=_by_name(quadrics.QuadricGroup, arrays.quadrics, device),
         triangles=_by_name(triangles.TriangleGroup, arrays.triangles, device),
         materials=_by_name(matlib.MaterialTable, arrays.materials, device),
         textures=_by_name(texlib.TextureTable, arrays.textures, device),

@@ -17,6 +17,13 @@
 // however many rays it holds. The kernel masks the ragged ray edge itself:
 // no padding of rays or spheres to the TPU's (512, 128) tiling.
 //
+// The moving form (motion blur, sphere.rs:50-52): the sphere tile also
+// carries its speed and each thread its ray's time, and the center of a pair
+// is c + speed * time, as geometry/spheres.py pair_t of the JAX package
+// moves it. In the JAX package a moving group never takes the TPU kernel
+// (XLA fuses its dense sweep); here the dense sweep is this kernel on the
+// card. Static groups keep their own instantiation, with no speed loads.
+//
 // What bounds it on the card. With few spheres (example.sdl: S = 4) it is
 // the ray I/O: 24 bytes in and 8 bytes out per ray, at device-memory
 // bandwidth. With many (book1: S = 478) it is about 20 float operations per
@@ -38,13 +45,16 @@ namespace {
 constexpr int kThreads = 256;
 constexpr float kBig = 1e30f;
 
+template <bool MOVING>
 __global__ void __launch_bounds__(kThreads)
 sphere_min_t_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                     const float* __restrict__ oz, const float* __restrict__ dx,
                     const float* __restrict__ dy, const float* __restrict__ dz,
                     const float* __restrict__ cx, const float* __restrict__ cy,
                     const float* __restrict__ cz, const float* __restrict__ r2,
-                    const uint8_t* __restrict__ active, float t_min, float t_max,
+                    const uint8_t* __restrict__ active, const float* __restrict__ sx,
+                    const float* __restrict__ sy, const float* __restrict__ sz,
+                    const float* __restrict__ time, float t_min, float t_max,
                     float* __restrict__ t_out, int32_t* __restrict__ idx_out,
                     int n, int s) {
   __shared__ float s_cx[kThreads];
@@ -52,6 +62,9 @@ sphere_min_t_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
   __shared__ float s_cz[kThreads];
   __shared__ float s_r2[kThreads];
   __shared__ uint8_t s_act[kThreads];
+  __shared__ float s_sx[MOVING ? kThreads : 1];
+  __shared__ float s_sy[MOVING ? kThreads : 1];
+  __shared__ float s_sz[MOVING ? kThreads : 1];
 
   const int ray = blockIdx.x * kThreads + threadIdx.x;
   const bool live = ray < n;
@@ -60,6 +73,7 @@ sphere_min_t_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
     o_x = ox[ray]; o_y = oy[ray]; o_z = oz[ray];
     d_x = dx[ray]; d_y = dy[ray]; d_z = dz[ray];
   }
+  const float tm = (MOVING && live) ? time[ray] : 0.f;
   float best_t = kBig;
   int32_t best_i = 0;
 
@@ -72,13 +86,18 @@ sphere_min_t_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
       s_cz[threadIdx.x] = cz[j];
       s_r2[threadIdx.x] = r2[j];
       s_act[threadIdx.x] = active[j];
+      if (MOVING) {
+        s_sx[threadIdx.x] = sx[j];
+        s_sy[threadIdx.x] = sy[j];
+        s_sz[threadIdx.x] = sz[j];
+      }
     }
     __syncthreads();
     const int tile = min(kThreads, s - base);
     for (int k = 0; k < tile; ++k) {
-      const float lx = o_x - s_cx[k];
-      const float ly = o_y - s_cy[k];
-      const float lz = o_z - s_cz[k];
+      const float lx = o_x - (MOVING ? s_cx[k] + s_sx[k] * tm : s_cx[k]);
+      const float ly = o_y - (MOVING ? s_cy[k] + s_sy[k] * tm : s_cy[k]);
+      const float lz = o_z - (MOVING ? s_cz[k] + s_sz[k] * tm : s_cz[k]);
       const float half_b = (d_x * lx + d_y * ly) + d_z * lz;
       const float c = ((lx * lx + ly * ly) + lz * lz) - s_r2[k];
       const float delta = half_b * half_b - c;
@@ -106,19 +125,32 @@ sphere_min_t_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
 extern "C" int sphere_min_t_launch(const void* ox, const void* oy, const void* oz,
                                    const void* dx, const void* dy, const void* dz,
                                    const void* cx, const void* cy, const void* cz,
-                                   const void* r2, const void* active, float t_min,
-                                   float t_max, void* t_out, void* idx_out, int n,
-                                   int s, void* stream) {
+                                   const void* r2, const void* active, const void* sx,
+                                   const void* sy, const void* sz, const void* time,
+                                   float t_min, float t_max, void* t_out, void* idx_out,
+                                   int n, int s, void* stream) {
+  // sx, sy, sz (S,) and time (N,) select the moving form; all null: static
   if (n > 0) {
     const int blocks = (n + kThreads - 1) / kThreads;
-    sphere_min_t_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(ox), static_cast<const float*>(oy),
-        static_cast<const float*>(oz), static_cast<const float*>(dx),
-        static_cast<const float*>(dy), static_cast<const float*>(dz),
-        static_cast<const float*>(cx), static_cast<const float*>(cy),
-        static_cast<const float*>(cz), static_cast<const float*>(r2),
-        static_cast<const uint8_t*>(active), t_min, t_max,
-        static_cast<float*>(t_out), static_cast<int32_t*>(idx_out), n, s);
+    auto st = static_cast<cudaStream_t>(stream);
+#define ARGS                                                                   \
+  static_cast<const float*>(ox), static_cast<const float*>(oy),               \
+      static_cast<const float*>(oz), static_cast<const float*>(dx),           \
+      static_cast<const float*>(dy), static_cast<const float*>(dz),           \
+      static_cast<const float*>(cx), static_cast<const float*>(cy),           \
+      static_cast<const float*>(cz), static_cast<const float*>(r2),           \
+      static_cast<const uint8_t*>(active), static_cast<const float*>(sx),     \
+      static_cast<const float*>(sy), static_cast<const float*>(sz),           \
+      static_cast<const float*>(time), t_min, t_max, static_cast<float*>(t_out), \
+      static_cast<int32_t*>(idx_out), n, s
+    if (sx && sy && sz && time) {
+      sphere_min_t_kernel<true><<<blocks, kThreads, 0, st>>>(ARGS);
+    } else if (!sx && !sy && !sz && !time) {
+      sphere_min_t_kernel<false><<<blocks, kThreads, 0, st>>>(ARGS);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef ARGS
   }
   return static_cast<int>(cudaGetLastError());
 }

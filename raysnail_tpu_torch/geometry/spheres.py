@@ -1,4 +1,4 @@
-"""Ray-sphere intersection over a static SoA sphere group.
+"""Ray-sphere intersection over a SoA sphere group.
 
 The reference's half-b quadratic with the t1-else-t2 in-range rule
 (src/hittable/geometry/sphere.rs:83-109) and spherical uv
@@ -11,8 +11,9 @@ Groups of 64 or more spheres also carry a packed BVH; with `use_bvh` they
 go through the BVH traversal kernel (`ops.bvh_traverse` kind "sphere"),
 which returns the winner's center, radius and material itself.
 
-Motion blur is not ported yet (ROADMAP M4); scene compile refuses moving
-spheres.
+With `moving`, centers move by speed * ray.time: the sweep is the kernel's
+moving form, and the winner's center is moved the same way. Scene compile
+leaves a moving group without a packed BVH, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ class SphereGroup(NamedTuple):
     radius: torch.Tensor    # (S,)
     mat_id: torch.Tensor    # (S,) int32
     active: torch.Tensor    # (S,) bool — False for padding rows
+    speed: Vec3 | None = None  # (S,) motion-blur velocity; None reads as zero
     # packed BVH for the traversal kernel (groups of >= 64 spheres)
     pk_bb: torch.Tensor | None = None     # (K, M, 8) f32
     pk_links: torch.Tensor | None = None  # (K, M, 4) i32
@@ -42,22 +44,56 @@ class SphereGroup(NamedTuple):
     pk_crange: torch.Tensor | None = None  # (K, 64, 4) i32 [start, end) node ranges
 
 
+def pair_t(group: SphereGroup, origin: Vec3, direction: Vec3, time, t_min, t_max,
+           moving: bool):
+    """Surface-hit t for every (ray, sphere) pair, in plain tensor code (the
+    JAX package's function of this name; `intersect` goes through
+    `ops.sphere_min_t` instead). origin and direction components are (N, 1),
+    group components (S,) read as (1, S); -> (N, S). Directions must be
+    unit."""
+    cx, cy, cz = group.center.x, group.center.y, group.center.z
+    if moving:
+        cx = cx + group.speed.x * time
+        cy = cy + group.speed.y * time
+        cz = cz + group.speed.z * time
+    lx = origin.x - cx
+    ly = origin.y - cy
+    lz = origin.z - cz
+    half_b = direction.x * lx + direction.y * ly + direction.z * lz
+    c = lx * lx + ly * ly + lz * lz - group.radius * group.radius
+    delta = half_b * half_b - c
+    sq = torch.sqrt(torch.clamp_min(delta, 0.0))
+    t1 = -half_b - sq
+    t2 = -half_b + sq
+    ok = (delta > 0.0) & group.active
+    in1 = ok & (t_min < t1) & (t1 < t_max)
+    in2 = ok & (t_min < t2) & (t2 < t_max)
+    return torch.where(in1, t1, torch.where(in2, t2, torch.full_like(t1, BIG)))
+
+
 def intersect(group: SphereGroup, ray, t_min, t_max, need_uv: bool = True,
-              use_bvh: bool = False, active=None, packet: bool | None = None) -> Hit:
+              use_bvh: bool = False, active=None, packet: bool | None = None,
+              moving: bool = False) -> Hit:
     """Closest sphere hit per ray. use_bvh takes the BVH kernel route when
     the group has a packed BVH; `active` (the integrator's alive mask) then
     keeps dead lanes from admitting nodes, and `packet` is bvh_traverse's
-    argument of that name."""
+    argument of that name. moving: centers move by speed * ray.time."""
     o, d = ray.origin, ray.direction
     if use_bvh and group.pk_bb is not None:
         return _intersect_bvh(group, ray, t_min, t_max, need_uv, active, packet)
+    motion = {}
+    if moving:
+        motion = dict(speed_xyz=(group.speed.x, group.speed.y, group.speed.z),
+                      time=ray.time.contiguous())
     t_best, idx = sphere_min_t(
         (o.x, o.y, o.z), (d.x, d.y, d.z),
         (group.center.x, group.center.y, group.center.z),
-        group.radius * group.radius, group.active, t_min, t_max)
+        group.radius * group.radius, group.active, t_min, t_max, **motion)
     valid = t_best < BIG
     idx = idx.long()
     center = group.center[idx]
+    if moving:
+        center = center + group.speed[idx] * ray.time
     radius = group.radius[idx]
     mat_id = group.mat_id[idx]
 

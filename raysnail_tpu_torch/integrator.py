@@ -105,16 +105,18 @@ def kernel_routes(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
 
 
 def _make_shade(scene: scenelib.Scene, cfg: RenderConfig, routes: scenelib.Routes):
-    """One bounce of the estimator: (arrays, o, d, T, L, alive, kb) ->
-    (new_o, new_d, T, L, alive). Dead lanes keep their incoming ray state."""
+    """One bounce of the estimator: (arrays, o, d, T, L, alive, kb, time) ->
+    (new_o, new_d, T, L, alive). Dead lanes keep their incoming ray state.
+    `time` is the path's departure time, which its bounce rays keep: only a
+    scene with moving spheres reads it (None otherwise)."""
     static = scene.static
     kinds = static.mat_kinds
     slot, n_uniforms = _slot_layout(kinds, static.has_lights, static.mix_depth)
 
     def shade(arrays: scenelib.SceneArrays, o: Vec3, d: Vec3, T: Vec3, L: Vec3,
-              alive, kb):
+              alive, kb, time=None):
         zeros = Vec3.zeros(d.x.shape, T.x.dtype, T.x.device)
-        hit = scenelib.intersect(scene, arrays, Ray(o, d, None), cfg.t_min, cfg.t_max,
+        hit = scenelib.intersect(scene, arrays, Ray(o, d, time), cfg.t_min, cfg.t_max,
                                  routes, active=alive)
 
         # miss -> background, die (camera.rs:254)
@@ -239,13 +241,14 @@ def radiance_regen(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
     b = torch.zeros(shape, dtype=torch.int64, device=device)
     r0 = new_ray(sid)
     o, d = r0.origin, r0.direction
+    time = r0.time if scene.static.moving else None
     ones = Vec3.ones(shape, dtype, device)
     T, L = ones, Vec3.zeros(shape, dtype, device)
     alive = torch.ones(shape, dtype=torch.bool, device=device)
     iterations = 0
     while bool((sid < s_end).any()):
         kb = prng.fold_all(prng.fold_all(keys0, sid), b)
-        o, d, T, L, alive2 = shade(arrays, o, d, T, L, alive, kb)
+        o, d, T, L, alive2 = shade(arrays, o, d, T, L, alive, kb, time)
         # a path at its final bounce contributes nothing more
         # (camera.rs:161-163): it is done the moment it is shaded
         alive2 = alive2 & (b + 1 < cfg.max_depth)
@@ -255,6 +258,8 @@ def radiance_regen(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
         rn = new_ray(sid)
         o = Vec3.where(regen, rn.origin, o)
         d = Vec3.where(regen, rn.direction, d)
+        if time is not None:
+            time = torch.where(regen, rn.time, time)
         T = Vec3.where(regen, ones, T)
         b = torch.where(done, torch.zeros_like(b), b + 1)
         alive = alive2 | regen
@@ -353,6 +358,7 @@ def radiance_regen_shuffle(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
         b = torch.zeros(n_pix, dtype=torch.int64, device=device)
         r0 = new_ray(k, cs0)
         o, d = r0.origin, r0.direction
+        time = r0.time if scene.static.moving else None
         T = Vec3.ones((n_pix,), dtype, device)
         table = torch.zeros((3, n_pix * C), dtype=dtype, device=device)
         alive = torch.ones(n_pix, dtype=torch.bool, device=device)
@@ -361,7 +367,7 @@ def radiance_regen_shuffle(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
         while bool((k < C).any()):
             keys_s, _, _ = lane_keys(k, cs0)
             kb = prng.fold_all(keys_s, b)
-            o, d, T, L_add, alive2 = shade(arrays, o, d, T, zeros, alive, kb)
+            o, d, T, L_add, alive2 = shade(arrays, o, d, T, zeros, alive, kb, time)
             # cell (lane, k) of the (N, C) table; a finished lane (k == C)
             # adds zero radiance, so its column is clamped
             cell = lanes * C + torch.clamp_max(k, C - 1)
@@ -375,6 +381,8 @@ def radiance_regen_shuffle(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
             rn = new_ray(k, cs0)
             o = Vec3.where(regen, rn.origin, o)
             d = Vec3.where(regen, rn.direction, d)
+            if time is not None:
+                time = torch.where(regen, rn.time, time)
             T = Vec3.where(regen, Vec3.ones((n_pix,), dtype, device), T)
             b = torch.where(alive2, b + 1, torch.zeros_like(b))
             alive = alive2 | regen

@@ -8,6 +8,10 @@ nvcc into `_build/`, loaded with ctypes) or raises; on CPU tensors it runs
 `sphere_min_t_plain`. There is no fallback from the kernel to the plain
 version: a build or launch failure raises.
 
+The moving form (`speed_xyz` and `time` given) moves each sphere's center
+to c + speed * time for the ray's time, the reference's motion blur
+(sphere.rs:50-52): static groups keep the kernel's static instantiation.
+
 `sphere_min_t.launches` counts kernel launches (not plain-version calls), so
 a run can show that its sphere sweeps went through the kernel.
 """
@@ -35,21 +39,29 @@ def _load():
         lib = ctypes.CDLL(build())
         fn = lib.sphere_min_t_launch
         ptr = ctypes.c_void_p
-        fn.argtypes = [ptr] * 11 + [ctypes.c_float, ctypes.c_float, ptr, ptr,
+        fn.argtypes = [ptr] * 15 + [ctypes.c_float, ctypes.c_float, ptr, ptr,
                                     ctypes.c_int, ctypes.c_int, ptr]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def sphere_min_t_plain(origin_xyz, dir_xyz, center_xyz, r2, active, t_min, t_max):
+def sphere_min_t_plain(origin_xyz, dir_xyz, center_xyz, r2, active, t_min, t_max,
+                       speed_xyz=None, time=None):
     """Plain PyTorch version: the dense (N, S) pair-t matrix, then min and
-    first-index argmin. -> (t (N,) f32, idx (N,) i32)."""
+    first-index argmin. -> (t (N,) f32, idx (N,) i32). With speed_xyz (three
+    (S,)) and time (N,), the centers move to c + speed * time."""
     ox, oy, oz = (a[:, None] for a in origin_xyz)
     dx, dy, dz = (a[:, None] for a in dir_xyz)
-    lx = ox - center_xyz[0]
-    ly = oy - center_xyz[1]
-    lz = oz - center_xyz[2]
+    cx, cy, cz = center_xyz
+    if speed_xyz is not None:
+        tm = time[:, None]
+        cx = cx + speed_xyz[0] * tm
+        cy = cy + speed_xyz[1] * tm
+        cz = cz + speed_xyz[2] * tm
+    lx = ox - cx
+    ly = oy - cy
+    lz = oz - cz
     half_b = dx * lx + dy * ly + dz * lz
     c = lx * lx + ly * ly + lz * lz - r2
     delta = half_b * half_b - c
@@ -76,12 +88,17 @@ def _check(name, a, n, dtype, device):
                          f"{a.device}{'' if a.is_contiguous() else ' (strided)'}")
 
 
-def sphere_min_t(origin_xyz, dir_xyz, center_xyz, r2, active, t_min, t_max):
+def sphere_min_t(origin_xyz, dir_xyz, center_xyz, r2, active, t_min, t_max,
+                 speed_xyz=None, time=None):
     """-> (t_best (N,) f32, idx_best (N,) i32) for N rays against S spheres.
 
     origin_xyz, dir_xyz: three (N,) f32 tensors each; center_xyz: three (S,)
     f32; r2: (S,) f32 squared radii; active: (S,) bool. Misses give
-    t = BIG and idx = 0; ties go to the first sphere index."""
+    t = BIG and idx = 0; ties go to the first sphere index. speed_xyz (three
+    (S,) f32) and time ((N,) f32), given together, select the moving form."""
+    if (speed_xyz is None) != (time is None):
+        raise ValueError("sphere_min_t: speed_xyz and time go together")
+    moving = speed_xyz is not None
     device = origin_xyz[0].device
     n = origin_xyz[0].shape[0]
     s = r2.shape[0]
@@ -93,9 +110,13 @@ def sphere_min_t(origin_xyz, dir_xyz, center_xyz, r2, active, t_min, t_max):
         _check(f"center[{i}]", a, s, torch.float32, device)
     _check("r2", r2, s, torch.float32, device)
     _check("active", active, s, torch.bool, device)
+    if moving:
+        for i, a in enumerate(speed_xyz):
+            _check(f"speed[{i}]", a, s, torch.float32, device)
+        _check("time", time, n, torch.float32, device)
     if device.type == "cpu":
         return sphere_min_t_plain(origin_xyz, dir_xyz, center_xyz, r2, active,
-                                  t_min, t_max)
+                                  t_min, t_max, speed_xyz, time)
     if device.type != "cuda":
         raise ValueError(f"sphere_min_t: unsupported device {device}")
 
@@ -106,12 +127,16 @@ def sphere_min_t(origin_xyz, dir_xyz, center_xyz, r2, active, t_min, t_max):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.sphere_min_t_launch(
             *(a.data_ptr() for a in (*origin_xyz, *dir_xyz, *center_xyz, r2, active)),
+            *((a.data_ptr() for a in (*speed_xyz, time)) if moving else (None,) * 4),
             float(t_min), float(t_max), t_out.data_ptr(), idx_out.data_ptr(),
             n, s, stream)
     if err != 0:
         raise RuntimeError(f"sphere_min_t kernel launch failed: cudaError {err}")
     sphere_min_t.launches += 1
+    if moving:
+        sphere_min_t.moving_launches += 1
     return t_out, idx_out
 
 
-sphere_min_t.launches = 0
+sphere_min_t.launches = 0          # every launch, static and moving
+sphere_min_t.moving_launches = 0   # of them, the launches of the moving form

@@ -1,8 +1,9 @@
 """Scene compilation: host IR -> flat SoA tensors on a device.
 
-The JAX package's `scene.py` for the primitives this port carries: static
-sphere groups, (oriented) box groups and triangle meshes, the texture,
-material and light tables, and the background. Transforms are baked into
+The JAX package's `scene.py` for the primitives this port carries: sphere
+groups (static or moving), (oriented) box groups, rect and quadric groups
+and triangle meshes, the texture, material and light tables (image and
+Perlin textures included), and the background. Transforms are baked into
 primitive parameters at compile time, so the render hot path has no
 transform facade.
 
@@ -31,7 +32,7 @@ from raysnail_tpu_torch import lights as lightslib
 from raysnail_tpu_torch import materials as matlib
 from raysnail_tpu_torch import textures as texlib
 from raysnail_tpu_torch.accel.bvh import build_bvh, coarse_cut, relinearize_octants
-from raysnail_tpu_torch.geometry import boxes, spheres, triangles
+from raysnail_tpu_torch.geometry import boxes, quadrics, rects, spheres, triangles
 from raysnail_tpu_torch.geometry import transforms as tf
 from raysnail_tpu_torch.geometry.hit import Hit, combine_hits, miss
 from raysnail_tpu_torch.ops.bvh_traverse import COARSE_MAX, LANES, MXU_LANES, NF
@@ -44,8 +45,6 @@ BRUTE_FORCE_MAX = 32768    # meshes up to this many triangles: dense sweep on th
 OCTANT_CAP = 4600          # trees up to this many nodes get 8 octant orders
 
 _NOT_PORTED = {
-    ir.Rect: "rects (ROADMAP M4)",
-    ir.Quadric: "quadrics (ROADMAP M4)",
     ir.Csg: "CSG (ROADMAP M13)",
     ir.ConstantMedium: "media (ROADMAP M13)",
     ir.Mandelbulb: "the Mandelbulb (ROADMAP M14)",
@@ -66,6 +65,8 @@ class Background(NamedTuple):
 class SceneArrays(NamedTuple):
     spheres: Optional[spheres.SphereGroup]
     boxes: Optional[boxes.BoxGroup]
+    rects: Optional[rects.RectGroup]
+    quadrics: Optional[quadrics.QuadricGroup]
     triangles: Optional[triangles.TriangleGroup]
     materials: matlib.MaterialTable
     textures: texlib.TextureTable
@@ -82,6 +83,7 @@ class SceneStatic:
     has_absorb: bool = False  # any dielectric with Beer-Lambert absorption
     mix_depth: int = 1        # max Mixed-material nesting (resolve iterations)
     tri_brute: bool = False   # dense triangle sweep on the CPU (small meshes)
+    moving: bool = False      # some sphere moves (motion blur): centers follow ray.time
 
 
 @dataclasses.dataclass
@@ -105,7 +107,7 @@ class Routes(NamedTuple):
 def intersect(scene: Scene, arrays: SceneArrays, ray, t_min, t_max,
               routes: Routes = Routes(), active=None) -> Hit:
     """Closest hit across all primitive groups, in the JAX package's order:
-    spheres, boxes, triangles. `arrays` is passed separately so a caller can
+    spheres, boxes, rects, quadrics, triangles. `arrays` is passed separately so a caller can
     render other scene data (e.g. converted from the JAX package) with the
     same static structure. `active` is the integrator's alive mask: on the
     kernel routes dead lanes admit no BVH node, and the box and triangle
@@ -116,7 +118,8 @@ def intersect(scene: Scene, arrays: SceneArrays, ray, t_min, t_max,
         best = combine_hits(best, spheres.intersect(
             arrays.spheres, ray, t_min, t_max,
             need_uv=texlib.IMAGE in scene.static.tex_modes,
-            use_bvh=routes.sphere_bvh, active=active, packet=routes.packet))
+            use_bvh=routes.sphere_bvh, active=active, packet=routes.packet,
+            moving=scene.static.moving))
     if arrays.boxes is not None:
         if routes.box_bvh and arrays.boxes.pk_bb is not None:
             best = combine_hits(best, boxes.intersect_kernel(
@@ -124,6 +127,10 @@ def intersect(scene: Scene, arrays: SceneArrays, ray, t_min, t_max,
                 packet=routes.packet))
         else:
             best = combine_hits(best, boxes.intersect(arrays.boxes, ray, t_min, t_max))
+    if arrays.rects is not None:
+        best = combine_hits(best, rects.intersect(arrays.rects, ray, t_min, t_max))
+    if arrays.quadrics is not None:
+        best = combine_hits(best, quadrics.intersect(arrays.quadrics, ray, t_min, t_max))
     if arrays.triangles is not None:
         # on the CPU a big mesh takes the kernel route's plain version: the
         # port carries no thin-BVH lockstep walk
@@ -194,6 +201,8 @@ class _Tables:
         self.tex_rows: list = []
         self.mat_index: dict = {}
         self.mat_rows: list = []
+        self.images: list = []
+        self.perlins: list = []
         self.deep_checker = False  # some checker has non-constant children
         self.checker_depth = 0     # max checker nesting (1 = plain checker)
         self._row_depth: list = [] # per-row checker nesting depth
@@ -207,7 +216,7 @@ class _Tables:
         if spec in self.tex_index:
             return self.tex_index[spec]
         row = dict(ttype=texlib.CONSTANT, color1=(0.0, 0.0, 0.0), color2=(0.0, 0.0, 0.0),
-                   scale=1.0, child1=-1, child2=-1)
+                   scale=1.0, image_id=-1, depth=0, perlin_id=-1, child1=-1, child2=-1)
         depth = 0
         if isinstance(spec, ir.Constant):
             row["color1"] = spec.rgb
@@ -223,9 +232,20 @@ class _Tables:
                 row.update(color1=odd.rgb, color2=even.rgb)
             else:
                 self.deep_checker = True
-        elif isinstance(spec, (ir.ImageTex, ir.Noise)):
-            raise NotImplementedError(
-                f"{type(spec).__name__} textures are not ported yet (ROADMAP M5)")
+        elif isinstance(spec, ir.ImageTex):
+            from PIL import Image
+            img = np.asarray(Image.open(spec.path).convert("RGB"), np.float32) / 255.0
+            row.update(ttype=texlib.IMAGE, image_id=len(self.images))
+            self.images.append(img)
+        elif isinstance(spec, ir.Noise):
+            ttype = {"normal": texlib.PERLIN, "turbulence": texlib.PERLIN_TURB,
+                     "marble": texlib.PERLIN_MARBLE}[spec.kind]
+            row.update(ttype=ttype, scale=spec.scale, depth=spec.depth,
+                       perlin_id=len(self.perlins))
+            # the lattice is hashed on the fly (textures._lattice_corner):
+            # only the seed, the vector flag and the smoothing mode remain
+            self.perlins.append(((spec.seed + 12345) & 0xFFFFFFFF, bool(spec.vector),
+                                 {"none": 0, "linear": 1, "hermitian": 2}[spec.smooth]))
         else:
             raise TypeError(f"unknown texture {spec!r}")
         idx = len(self.tex_rows)
@@ -282,7 +302,8 @@ class _Tables:
 
 def _compile(builder: SceneBuilder, dtype, device: torch.device, mesh_solver=None) -> Scene:
     tables = _Tables()
-    sph, box_list, mesh_list = [], [], []
+    sph, box_list, rect_list, quad_list, mesh_list = [], [], [], [], []
+    moving = False
 
     for obj in builder.objects:
         for kind, what in _NOT_PORTED.items():
@@ -291,23 +312,28 @@ def _compile(builder: SceneBuilder, dtype, device: torch.device, mesh_solver=Non
         m = ir.unmat4(obj.transform) if getattr(obj, "transform", None) else None
         if isinstance(obj, ir.Sphere):
             mat = tables.material(obj.material)
-            if any(obj.speed):
-                raise NotImplementedError(
-                    "moving spheres (motion blur) are not ported yet (ROADMAP M4)")
-            if m is None:
-                sph.append((obj.center, obj.radius, mat))
-                continue
-            ts = tf.is_translate_uniform_scale(m)
+            ts = (1.0, np.zeros(3)) if m is None else tf.is_translate_uniform_scale(m)
             if ts is None:
-                raise NotImplementedError(
-                    "a sphere under a non-uniform transform lowers to a quadric: "
-                    "quadrics are not ported yet (ROADMAP M4)")
+                # an ellipsoid: the sphere's quadric with the transform baked in
+                quad_list.append((tf.transform_quadric(
+                    tf.sphere_to_quadric(obj.center, obj.radius), m), mat))
+                continue
             s, off = ts
-            sph.append((tuple(np.asarray(obj.center) * s + off), obj.radius * s, mat))
+            center = obj.center if m is None else tuple(np.asarray(obj.center) * s + off)
+            moving = moving or any(obj.speed)
+            sph.append((center, obj.radius * s, mat, obj.speed))
         elif isinstance(obj, ir.Box):
             mat = tables.material(obj.material)
             inv = tf.inverse_rows(m) if m is not None else (None, None)
             box_list.append((obj.p_min, obj.p_max, mat, *inv))
+        elif isinstance(obj, ir.Rect):
+            mat = tables.material(obj.material)
+            inv = tf.inverse_rows(m) if m is not None else (None, None)
+            rect_list.append((obj, mat, *inv))
+        elif isinstance(obj, ir.Quadric):
+            mat = tables.material(obj.material)
+            coeffs = tuple(float(c) for c in obj.coeffs)
+            quad_list.append((tf.transform_quadric(coeffs, m) if m is not None else coeffs, mat))
         elif isinstance(obj, ir.Mesh):
             mesh_list.append((obj, tables.material(obj.material)))
         else:
@@ -328,13 +354,23 @@ def _compile(builder: SceneBuilder, dtype, device: torch.device, mesh_solver=Non
     def packed(arrs):  # host pk_* arrays -> tensors on the device
         return [torch.as_tensor(a, device=device) for a in arrs]
 
+    def oriented_rows(entries):
+        """(inv_rows, inv_off) of a group whose entries end in (rot, off), the
+        identity for its untransformed members; (None, None) if none has one."""
+        if all(e[-2] is None for e in entries):
+            return None, None
+        rots = np.asarray([e[-2] if e[-2] is not None else np.eye(3) for e in entries])
+        offs = np.asarray([e[-1] if e[-1] is not None else np.zeros(3) for e in entries])
+        return tuple(vec(rots[:, i, :]) for i in range(3)), vec(offs)
+
     pk_names = ("pk_bb", "pk_links", "pk_cbb", "pk_crange")
 
     # the kernel takes any sphere count: no padding rows
     sphere_group = None
     if sph:
         pk = [None] * 5
-        if len(sph) >= SPHERE_PACK_MIN:
+        # motion blur stays on the dense sweep: centers move per ray with time
+        if len(sph) >= SPHERE_PACK_MIN and not moving:
             c = np.asarray([s[0] for s in sph], np.float64)
             r = np.asarray([s[1] for s in sph], np.float64)
             pk = packed(_pack_leaf_blocks(
@@ -344,19 +380,13 @@ def _compile(builder: SceneBuilder, dtype, device: torch.device, mesh_solver=Non
         sphere_group = spheres.SphereGroup(
             center=vec([s[0] for s in sph]), radius=f32([s[1] for s in sph]),
             mat_id=i32([s[2] for s in sph]), active=flags(len(sph)),
-            **dict(zip(pk_names, pk)), pk_sph=pk[4])
+            speed=vec([s[3] for s in sph]), **dict(zip(pk_names, pk)), pk_sph=pk[4])
 
     box_group = None
     if box_list:
-        inv_rows = inv_off = None
-        oriented = any(b[3] is not None for b in box_list)
-        if oriented:
-            rots = np.asarray([b[3] if b[3] is not None else np.eye(3) for b in box_list])
-            offs = np.asarray([b[4] if b[4] is not None else np.zeros(3) for b in box_list])
-            inv_rows = tuple(vec(rots[:, i, :]) for i in range(3))
-            inv_off = vec(offs)
+        inv_rows, inv_off = oriented_rows(box_list)
         pk = [None] * 5
-        if not oriented and len(box_list) >= BOX_BVH_MIN_BUILD:
+        if inv_rows is None and len(box_list) >= BOX_BVH_MIN_BUILD:
             lo = np.asarray([b[0] for b in box_list], np.float64)
             hi = np.asarray([b[1] for b in box_list], np.float64)
             pk = packed(_pack_leaf_blocks(
@@ -367,6 +397,23 @@ def _compile(builder: SceneBuilder, dtype, device: torch.device, mesh_solver=Non
             p_min=vec([b[0] for b in box_list]), p_max=vec([b[1] for b in box_list]),
             mat_id=i32([b[2] for b in box_list]), active=flags(len(box_list)),
             inv_rows=inv_rows, inv_off=inv_off, **dict(zip(pk_names, pk)), pk_box=pk[4])
+
+    rect_group = None
+    if rect_list:
+        inv_rows, inv_off = oriented_rows(rect_list)
+        rect_group = rects.RectGroup(
+            k_axis=i32([r.k_axis for r, *_ in rect_list]),
+            **{f: f32([getattr(r, f) for r, *_ in rect_list])
+               for f in ("k", "a0", "a1", "b0", "b1")},
+            mat_id=i32([r[1] for r in rect_list]), active=flags(len(rect_list)),
+            inv_rows=inv_rows, inv_off=inv_off)
+
+    quad_group = None
+    if quad_list:
+        cols = np.asarray([q[0] for q in quad_list], np.float64).T
+        quad_group = quadrics.QuadricGroup(
+            *(f32(c) for c in cols), mat_id=i32([q[1] for q in quad_list]),
+            active=flags(len(quad_list)))
 
     tri_group = None
     if mesh_list:
@@ -400,10 +447,29 @@ def _compile(builder: SceneBuilder, dtype, device: torch.device, mesh_solver=Non
         tex_modes = tex_modes | {texlib.CHECKER_DEEP,
                                  ("checker_depth", tables.checker_depth)}
     col = lambda rows, name: [r[name] for r in rows]
+    atlas = atlas_wh = None
+    if tables.images:
+        mh = max(i.shape[0] for i in tables.images)
+        mw = max(i.shape[1] for i in tables.images)
+        atlas_np = np.zeros((len(tables.images), mh, mw, 3), np.float32)
+        for i, img in enumerate(tables.images):
+            atlas_np[i, :img.shape[0], :img.shape[1]] = img
+        atlas = torch.as_tensor(atlas_np, device=device)
+        atlas_wh = i32([(img.shape[1], img.shape[0]) for img in tables.images])
+    perlin_seed = perlin_is_vec = perlin_smooth = None
+    if tables.perlins:
+        perlin_seed = torch.as_tensor([p[0] for p in tables.perlins], dtype=torch.int64,
+                                      device=device)
+        perlin_is_vec = torch.as_tensor([p[1] for p in tables.perlins], dtype=torch.bool,
+                                        device=device)
+        perlin_smooth = i32([p[2] for p in tables.perlins])
     texture_table = texlib.TextureTable(
         ttype=i32(col(tr, "ttype")), color1=vec(col(tr, "color1")),
         color2=vec(col(tr, "color2")), scale=f32(col(tr, "scale")),
-        child1=i32(col(tr, "child1")), child2=i32(col(tr, "child2")))
+        child1=i32(col(tr, "child1")), child2=i32(col(tr, "child2")),
+        image_id=i32(col(tr, "image_id")), depth=i32(col(tr, "depth")),
+        atlas=atlas, atlas_wh=atlas_wh, perlin_id=i32(col(tr, "perlin_id")),
+        perlin_seed=perlin_seed, perlin_is_vec=perlin_is_vec, perlin_smooth=perlin_smooth)
 
     mr = tables.mat_rows
     has_absorb = any(any(c != 0.0 for c in r["absorb"]) for r in mr)
@@ -417,8 +483,8 @@ def _compile(builder: SceneBuilder, dtype, device: torch.device, mesh_solver=Non
 
     c1, c2 = builder.background
     arrays = SceneArrays(
-        spheres=sphere_group, boxes=box_group, triangles=tri_group,
-        materials=material_table,
+        spheres=sphere_group, boxes=box_group, rects=rect_group, quadrics=quad_group,
+        triangles=tri_group, materials=material_table,
         textures=texture_table, lights=light_arrays,
         background=Background(c1=Vec3.full(c1, (), dtype, device),
                               c2=Vec3.full(c2, (), dtype, device)))
@@ -426,7 +492,8 @@ def _compile(builder: SceneBuilder, dtype, device: torch.device, mesh_solver=Non
         tex_modes=tex_modes, mat_kinds=frozenset(r["mtype"] for r in mr),
         light_kinds=frozenset(light_kinds), has_lights=light_arrays is not None,
         has_absorb=has_absorb, mix_depth=tables.mix_depth,
-        tri_brute=tri_group is not None and tri_group.mat_id.shape[0] <= BRUTE_FORCE_MAX)
+        tri_brute=tri_group is not None and tri_group.mat_id.shape[0] <= BRUTE_FORCE_MAX,
+        moving=moving)
     return Scene(arrays=arrays, static=static, device=device)
 
 

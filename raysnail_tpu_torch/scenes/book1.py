@@ -7,8 +7,9 @@ three big balls, checker ground, and rtow_13_1's light sphere and sky
 gradient. The draw is numpy's `default_rng(seed)`, as in the JAX package,
 so a seed gives the same balls in both packages (the reference's ChaCha12
 stream is not reproduced: the scene is statistically, not bitwise, the
-reference's). Static balls only: moving balls need motion blur, which the
-port does not carry yet.
+reference's). `need_speed` gives each small ball an upward speed, drawn
+after its material, and `balls_camera(need_shutter=True)` opens the shutter
+for the motion blur.
 """
 
 from __future__ import annotations
@@ -20,9 +21,9 @@ from raysnail_tpu_torch.camera import build_camera
 from raysnail_tpu_torch.scene import SceneBuilder
 
 
-def generate_layout(seed: int = 7) -> list:
+def generate_layout(seed: int = 7, need_speed: bool = False) -> list:
     """The small-ball draw of scene.rs:23-76 as plain data. Each entry:
-    {center, kind, color?, fuzz?, ior?}. `rng.normal()` in the reference is
+    {center, kind, color?, fuzz?, ior?, speed}. `rng.normal()` in the reference is
     uniform [0,1)."""
     rng = np.random.default_rng(seed)
     out = []
@@ -51,6 +52,8 @@ def generate_layout(seed: int = 7) -> list:
                 else:
                     entry["kind"] = "dielectric"
                     entry["ior"] = 1.5
+                entry["speed"] = ([0.0, round(float(rng.random()) * 0.5, 9), 0.0]
+                                  if need_speed else [0.0, 0.0, 0.0])
                 out.append(entry)
     return out
 
@@ -67,14 +70,15 @@ def _material_of(entry: dict):
     return ir.Dielectric((1.0, 1.0, 1.0), entry["ior"], schlick=True)
 
 
-def balls_scene(seed: int = 7) -> SceneBuilder:
+def balls_scene(seed: int = 7, need_speed: bool = False) -> SceneBuilder:
     """scene.rs:162-191 (+ rtow_13_1.rs light and sky)."""
     builder = SceneBuilder()
     ground = ir.Lambertian(ir.Checker(ir.Constant((0.3, 0.3, 0.3)),
                                       ir.Constant((0.1, 0.1, 0.1)), 10.0))
     builder.add(ir.Sphere((0.0, -1000.0, 0.0), 1000.0, ground))
-    for entry in generate_layout(seed):
-        builder.add(ir.Sphere(tuple(entry["center"]), 0.2, _material_of(entry)))
+    for entry in generate_layout(seed, need_speed):
+        builder.add(ir.Sphere(tuple(entry["center"]), 0.2, _material_of(entry),
+                              speed=tuple(entry["speed"])))
     # scene.rs:137-160, the three big balls
     builder.add(ir.Sphere((0.0, 1.0, 0.0), 1.0, ir.Dielectric((1, 1, 1), 1.5, schlick=True)))
     builder.add(ir.Sphere((-4.0, 1.0, 0.0), 1.0, ir.Lambertian(ir.Constant((0.4, 0.2, 0.1)))))
@@ -86,8 +90,9 @@ def balls_scene(seed: int = 7) -> SceneBuilder:
     return builder
 
 
-def balls_camera(width: int, height: int, device=None):
+def balls_camera(width: int, height: int, need_shutter: bool = False, device=None):
     """scene.rs:193-208: 13,2,3 -> origin, fov 20, aperture 0.02, focus 10."""
     return build_camera(look_from=(13.0, 2.0, 3.0), look_at=(0.0, 0.0, 0.0), fov=20.0,
-                        aperture=0.02, focus_distance=10.0, width=width, height=height,
-                        device=device)
+                        aperture=0.02, focus_distance=10.0,
+                        shutter_speed=1.0 if need_shutter else 0.0,
+                        width=width, height=height, device=device)

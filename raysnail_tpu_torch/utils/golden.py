@@ -56,7 +56,7 @@ def golden_configs(device):
     from raysnail_tpu_torch.camera import build_camera
     from raysnail_tpu_torch.config import RenderConfig
     from raysnail_tpu_torch.scene import SceneBuilder
-    from raysnail_tpu_torch.scenes import book1
+    from raysnail_tpu_torch.scenes import book1, cornell
     from raysnail_tpu_torch.sdl.driver import build_scene
 
     out = {}
@@ -67,6 +67,22 @@ def golden_configs(device):
         return scene, cam, cfg, 7
 
     out["example.sdl"] = sdl_entry
+
+    def cornell_entry():
+        # rendered and reported, not yet held: one thumbnail block reads 0.010036
+        # (see `python tests/cornell_fma_reading.py`)
+        cfg = RenderConfig(width=96, height=96, samples=9, max_depth=8)
+        scene = cornell.cornell_box(carton=True, carton_rotation=True).compile(cfg.dtype, device)
+        return scene, cornell.cornell_camera(cfg.width, cfg.height, device=device), cfg, 7
+
+    out["cornell"] = cornell_entry
+
+    def book1_entry():
+        cfg = RenderConfig(width=96, height=54, samples=4, max_depth=8)
+        return (book1.balls_scene(7).compile(cfg.dtype, device),
+                book1.balls_camera(cfg.width, cfg.height, device=device), cfg, 7)
+
+    out["book1"] = book1_entry
 
     def mesh_entry():
         cfg = RenderConfig(width=96, height=64, samples=4, max_depth=4)
@@ -192,16 +208,26 @@ def load_golden() -> dict:
     return {n: {f: data[f"{n}/{f}"] for f in ("thumb", "mean", "std")} for n in names}
 
 
-def check_anchor(name: str, golden: dict, device="cpu") -> dict:
-    """Render `name` on `device` and hold it against its committed stats
-    within THUMB_ATOL and MEAN_ATOL. -> {"dthumb", "dmean"}; raises
-    AssertionError on drift."""
+def anchor_drift(name: str, golden: dict, device="cpu") -> dict:
+    """Render `name` on `device` -> its drift from the committed stats:
+    {"dthumb", "dmean", "blocks_beyond" (thumbnail blocks past THUMB_ATOL)}."""
     fresh = anchor_stats(render_anchor(name, device))
     ref = golden[name.split("/")[0]]  # a forced-mode entry is held to its anchor
     assert fresh["thumb"].shape == ref["thumb"].shape, (
         f"{name}: thumbnail shape {fresh['thumb'].shape} vs {ref['thumb'].shape}")
-    dthumb = float(np.abs(fresh["thumb"] - ref["thumb"]).max())
-    dmean = float(np.abs(fresh["mean"] - ref["mean"]).max())
-    assert dmean <= MEAN_ATOL, f"{name}: global mean drifted by {dmean} (> {MEAN_ATOL})"
-    assert dthumb <= THUMB_ATOL, f"{name}: thumbnail drifted by {dthumb} (> {THUMB_ATOL})"
-    return {"dthumb": dthumb, "dmean": dmean}
+    block_err = np.abs(fresh["thumb"] - ref["thumb"]).max(axis=-1)
+    return {"dthumb": float(block_err.max()),
+            "dmean": float(np.abs(fresh["mean"] - ref["mean"]).max()),
+            "blocks_beyond": int((block_err > THUMB_ATOL).sum())}
+
+
+def check_anchor(name: str, golden: dict, device="cpu") -> dict:
+    """Render `name` on `device` and hold it against its committed stats
+    within THUMB_ATOL and MEAN_ATOL -> its `anchor_drift`; raises
+    AssertionError on drift."""
+    res = anchor_drift(name, golden, device)
+    assert res["dthumb"] <= THUMB_ATOL, (
+        f"{name}: thumbnail drifted by {res['dthumb']} (> {THUMB_ATOL})")
+    assert res["dmean"] <= MEAN_ATOL, (
+        f"{name}: global mean drifted by {res['dmean']} (> {MEAN_ATOL})")
+    return res

@@ -235,3 +235,115 @@ def test_packet_kernel_is_picked_when_a_mode_needs_it(cuda_device):
         bt.bvh_traverse(*args, TMIN, TMAX, kind="tri", stream=True, packet=False)
     with pytest.raises(ValueError, match="needs the coarse cut"):
         bt.bvh_traverse(*args, TMIN, TMAX, kind="tri", two_level=True)
+
+
+# -- the sphere sweep's moving form -------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s", [(800 * 500, 478), (100_003, 7), (65_537, 600)],
+                         ids=["book1-frame", "ragged-S7", "three-tiles"])
+def test_moving_sphere_kernel_matches_plain(cuda_device, n, s):
+    """Centers move by speed * the ray's time: t bit-equal and idx equal to
+    the plain version; zero speeds give the static form's result."""
+    args = sphere_case(3, n, s, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    speed = tuple((torch.rand(s, generator=gen, device=cuda_device) - 0.5) * 4.0
+                  for _ in range(3))
+    time = torch.rand(n, generator=gen, device=cuda_device)
+    before = (smt.sphere_min_t.launches, smt.sphere_min_t.moving_launches)
+    t, idx = smt.sphere_min_t(*args, TMIN, TMAX, speed_xyz=speed, time=time)
+    assert (smt.sphere_min_t.launches, smt.sphere_min_t.moving_launches) == (before[0] + 1,
+                                                                             before[1] + 1)
+    pt, pidx = smt.sphere_min_t_plain(*args, TMIN, TMAX, speed_xyz=speed, time=time)
+    torch.cuda.synchronize()
+    assert torch.equal(t, pt) and torch.equal(idx, pidx)
+    static_t, static_idx = smt.sphere_min_t(*args, TMIN, TMAX)
+    assert smt.sphere_min_t.moving_launches == before[1] + 1   # the static instantiation
+    hit = (static_t < 1e30) | (t < 1e30)
+    assert int(hit.sum()) > 0 and float((static_t != t)[hit].float().mean()) > 0.9  # it moves
+    zero = tuple(torch.zeros_like(c) for c in speed)
+    zt, zidx = smt.sphere_min_t(*args, TMIN, TMAX, speed_xyz=zero, time=time)
+    assert torch.equal(zt, static_t) and torch.equal(zidx, static_idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        smt.sphere_min_t(*args, TMIN, TMAX, speed_xyz=speed, time=time[::2])
+
+
+# -- the traversal probes -------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def probe_case():
+    """The probes' own case on the card: the 9,600-triangle knot under
+    320x200 primary rays in tile order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernels have no CPU mode")
+    from raysnail_tpu_torch import probes
+    return probes.build_case("knot-9600", "cuda")
+
+
+def _probe_calls():
+    from raysnail_tpu_torch.ops import bvh_probes as bp
+    calls = {}
+    for layout in bp.IO_LAYOUTS:
+        calls[f"io/{layout}"] = (
+            lambda c, layout=layout: bp.probe_io(c.o, c.d, layout),
+            lambda c: bp.probe_io_plain(c.o, c.d))
+    for shape in bp.SHAPES:
+        calls[f"walk/{shape}"] = (
+            lambda c, s=shape: bp.probe_walk(c.o, c.d, c.tri.pk_bb, c.tri.pk_links, s),
+            lambda c, s=shape: bp.probe_walk_plain(c.o, c.d, c.tri.pk_bb, c.tri.pk_links, s))
+        calls[f"sweep/{shape}"] = (
+            lambda c, s=shape: bp.probe_sweep(c.o, c.d, c.tri.pk_tri, s, 16),
+            lambda c: bp.probe_sweep_plain(c.o, c.d, c.tri.pk_tri, 16))
+        for v in bp.VARIANTS:
+            calls[f"variant/V{v}/{shape}"] = (
+                lambda c, v=v, s=shape: bp.probe_walk_variant(
+                    v, c.o, c.d, c.tri.pk_bb, c.tri.pk_links, c.tri.pk_tri, s),
+                lambda c, v=v, s=shape: bp.probe_walk_variant_plain(
+                    v, c.o, c.d, c.tri.pk_bb, c.tri.pk_links, c.tri.pk_tri, s))
+    for variant in bp.LATENCY_VARIANTS:
+        calls[f"latency/{variant}"] = (
+            lambda c, v=variant: bp.probe_walk_latency(c.o, c.d, c.tri.pk_bb, c.tri.pk_links,
+                                                       v, reps=3),
+            lambda c, v=variant: bp.probe_walk_latency_plain(c.o, c.d, c.tri.pk_bb,
+                                                             c.tri.pk_links, v))
+    return calls
+
+
+PROBE_KEYS = ([f"io/{x}" for x in ("soa", "rows", "transpose", "packed")]
+              + [f"{f}/{s}" for f in ("walk", "sweep") for s in ("ray", "packet")]
+              + [f"latency/{x}" for x in ("w32", "w128", "w1024", "cap", "buf")]
+              + [f"variant/V{v}/{s}" for v in (0, 1, 2, 3, 4, 5, 7, 8) for s in ("ray", "packet")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", PROBE_KEYS)
+def test_probe_kernel_matches_plain(probe_case, key):
+    """Every output of every probe, integers and floats, bit-equal to its
+    plain version; the launch count moves by the launches made."""
+    from raysnail_tpu_torch import probes
+    from raysnail_tpu_torch.ops import bvh_probes as bp
+    assert PROBE_KEYS == bp.launch_keys()
+    kernel, plain = _probe_calls()[key]
+    before = bp.launches[key]
+    got = kernel(probe_case)
+    torch.cuda.synchronize()
+    assert bp.launches[key] == before + (3 if key.startswith("latency/") else 1)
+    res = probes.compare(key, got, plain(probe_case))
+    assert res["bit_equal"], res
+
+
+@pytest.mark.cuda
+def test_probe_kernels_mask_a_ragged_last_packet(probe_case):
+    """63,937 rays: the last packet of every width is partial."""
+    from raysnail_tpu_torch import probes
+    from raysnail_tpu_torch.ops import bvh_probes as bp
+    n = probe_case.n - 63
+    cut = probes.Case("ragged", tuple(a[:n].contiguous() for a in probe_case.o),
+                      tuple(a[:n].contiguous() for a in probe_case.d), probe_case.tri, 16)
+    calls = _probe_calls()
+    for key in ("io/rows", "io/transpose", "io/packed", "walk/packet", "latency/w32",
+                "latency/w1024", "latency/buf", "variant/V8/packet", "variant/V8/ray"):
+        kernel, plain = calls[key]
+        assert probes.compare(key, kernel(cut), plain(cut))["bit_equal"], key
+    with pytest.raises(ValueError, match="contiguous"):
+        bp.probe_io(tuple(a[::2] for a in cut.o), tuple(a[::2] for a in cut.d))

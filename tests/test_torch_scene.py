@@ -145,16 +145,35 @@ def test_compile_equals_converted_jax_compile(source):
         assert getattr(tscene.static, name) == getattr(jscene.static, name), name
 
 
+_UNIT_SPHERE = tir.Sphere((0.0, 0.0, 0.0), 1.0, None)
+
+
+@pytest.mark.parametrize("obj", [
+    tir.Csg("intersection", _UNIT_SPHERE, tir.Box((-1, -1, -1), (0.5, 0.5, 0.5), None)),
+    tir.Csg("difference", _UNIT_SPHERE, tir.Rect(1, 0.0, -1.0, 1.0, -1.0, 1.0, None)),
+    tir.ConstantMedium(_UNIT_SPHERE, 0.01),
+    tir.Mandelbulb(),
+], ids=["csg-intersection", "csg-difference", "medium", "mandelbulb"])
+def test_unported_features_raise_with_their_roadmap_item(obj):
+    b = TBuilder().add(obj)
+    with pytest.raises(NotImplementedError, match="ROADMAP M"):
+        b.compile()
+
+
 @pytest.mark.parametrize("obj", [
     tir.Rect(1, 0.0, 0.0, 1.0, 0.0, 1.0, None),
     tir.Quadric((1.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, -1.0), None),
     tir.Sphere((0.0, 0.0, 0.0), 1.0, None, speed=(0.0, 1.0, 0.0)),
     tir.Sphere((0.0, 0.0, 0.0), 1.0, tir.Lambertian(tir.Noise(scale=4.0))),
 ], ids=["rect", "quadric", "moving-sphere", "perlin"])
-def test_unported_features_raise_with_their_roadmap_item(obj):
-    b = TBuilder().add(obj)
-    with pytest.raises(NotImplementedError, match="ROADMAP M"):
-        b.compile()
+def test_ported_primitives_compile_to_their_groups(obj):
+    """What compile refused until the dense-primitive modules were ported."""
+    scene = TBuilder().add(obj).compile()
+    a = scene.arrays
+    group = {tir.Rect: a.rects, tir.Quadric: a.quadrics, tir.Sphere: a.spheres}[type(obj)]
+    assert group is not None and group.mat_id.shape[0] == 1
+    assert scene.static.moving == any(getattr(obj, "speed", ()))
+    assert (a.textures.perlin_seed is not None) == (obj.material is not None)
 
 
 def _imports(tree):
