@@ -17,18 +17,19 @@ and exits non-zero if any fails:
               bit against the plain version, then `stream` and `two_level`,
               alone and together, bit for bit against the kernel with both
               off; tri_mxu's t against tri's within MXU_RTOL on all but
-              MXU_EDGE_SHARE of the rays that both hit. sphere_min_t's moving
+              MXU_EDGE_SHARE of the rays that both hit. Both traversal
+              kernels again on mesh-200k's bounce rays (cosine directions from
+              the primary rays' hit points, made from a seeded generator):
+              held against the plain version and timed. sphere_min_t's moving
               form on the moving book 1 frame's primary rays, bit for bit.
               Every traversal probe (ray I/O, walk, sweep, walk latency, the
               V0-V8 bisect) against its plain version, on the probes' own
               case knot-9600 and on mesh-200k: integers and min-t bit for
               bit, the near accumulator within probes.ACC_RTOL
   4. golden   the anchors example.sdl, mesh, mesh-binned, boxfield-kernel,
-              book1-spherebvh and book1 on the card, against the committed
-              tests/golden/golden.npz, with the kernel launches of each;
-              cornell is rendered and its drift printed, held by its mean only
-              (one thumbnail block of it reads 0.010036 on the CPU and on the
-              card alike, an open fault); then the mesh, box and sphere
+              book1-spherebvh, book1 and cornell on the card, against the
+              committed tests/golden/golden.npz, with the kernel launches of
+              each; then the mesh, box and sphere
               anchors forced through the packet kernel in every (kind, stream,
               two_level) mode, each against its anchor's statistics
   5. main     the probes' entry point, probes.main(["all", "--case",
@@ -43,17 +44,20 @@ and exits non-zero if any fails:
               (tri, tri with two_level, tri_mxu and tri_mxu with stream), and
               once through the tile-ordered sample-step path (render_sums),
               held against the frame step's image; the mesh-800k frame,
-              819,200 triangles, whose leaf blocks turn `stream` on by the auto rule and whose
-              tree keeps one node order, with the packet kernel held against
-              its plain version on 8,192 of its primary rays; the
-              9,600-triangle mesh+arealight frame; a passes=2 render of
-              example.sdl at 800x500@16spp. Each run reads the kernel launch
-              counts it made.
-  6. profile  (only with --profile) torch.profiler: the device time of one
-              call of each traversal kind and of its plain version; over one
-              mesh-200k frame per configuration and the mesh-800k frame,
-              device time by kernel, the traversal kernels' share and the
-              device's busy share
+              819,200 triangles, whose leaf blocks turn `stream` on by the
+              auto rule, with the port's 8 node orders, and one call of all
+              its primary rays (streamed, resident, per-ray kernel); the
+              packet kernel on the one node order that the JAX package's
+              node cap leaves that mesh, held against its plain version on
+              8,192 of its primary rays; the 9,600-triangle mesh+arealight
+              frame; a passes=2 render of example.sdl at 800x500@16spp. Each
+              run reads the kernel launch counts it made.
+  6. profile  (only with --profile) the mesh-800k frame and its primary
+              rays' call again on the one-order tree; torch.profiler: the
+              device time of one call of each traversal kind on the primary
+              and on the bounce rays; over one mesh-200k frame per
+              configuration and the mesh-800k frames, device time by kernel,
+              the traversal kernels' share and the device's busy share
 
 The last two lines are the kernels' JSON record (with each kernel's bound:
 the least time the card could take for the bytes and the FP32 operations
@@ -83,11 +87,11 @@ KNOT_200K, KNOT_800K, KNOT_AREA = (1600, 64), (6400, 64), (200, 24)  # (n_seg, n
 TIMING_RUNS = 20
 PLAIN_RUNS = 3                               # the plain BVH walk takes up to seconds
 ANCHORS = ("example.sdl", "mesh", "mesh-binned", "boxfield-kernel", "book1-spherebvh",
-           "book1")
-OPEN_ANCHORS = ("cornell",)                  # rendered and reported; thumbnail not held yet
+           "book1", "cornell")
 TRANSFORMS = os.path.join(ROOT, "sdl", "transforms.sdl")
 SMALL_SPP = 16                               # the transforms.sdl and moving book 1 frames
 BIG = 1e30
+SINGLE_ORDER_CAP = 4600                      # the JAX package's node cap: one order above it
 SUMS_ATOL = 1e-3                             # render_sums' image against the frame step's
 PASSES_SAMPLES = 16                          # the passes=2 frame's requested spp
 # the card's published peaks (H100 SXM): device memory bytes/s, FP32 FLOP/s
@@ -339,6 +343,34 @@ def primary_rays(camera, width, height, sqrt_spp, device):
                          sqrt_spp, width, height, keys)
 
 
+def bounce_rays(scene, ray, cfg, gen):
+    """The rays of a second shade iteration, from a seeded generator: from
+    each primary ray's closest hit (the mesh through its traversal kernel,
+    the spheres dense) a cosine-weighted direction about the normal; a ray
+    that left the scene is a dead lane. -> (origin cols, direction cols,
+    t_cap), t_cap the dense sphere group's hit as scene.intersect caps the
+    mesh traversal."""
+    from raysnail_tpu_torch import scene as scene_mod
+    from raysnail_tpu_torch.camera import Ray
+    from raysnail_tpu_torch.geometry import spheres as sphlib
+    from raysnail_tpu_torch.prelude.vec import Vec3
+
+    hit = scene_mod.intersect(scene, scene.arrays, ray, cfg.t_min, cfg.t_max,
+                              routes=scene_mod.Routes(mesh_kernel=True))
+    n = hit.t.shape[0]
+    device = hit.t.device
+    o = ray.origin.to_array() + ray.direction.to_array() * hit.t[:, None]
+    u = torch.randn(n, 3, generator=gen, device=device)
+    d = hit.normal.to_array() + u / u.norm(dim=1, keepdim=True)
+    d = d / d.norm(dim=1, keepdim=True).clamp_min(1e-6)
+    o = torch.where(hit.valid[:, None], o, torch.zeros_like(o)).contiguous()
+    d = torch.where(hit.valid[:, None], d, torch.ones_like(d) / 3 ** 0.5).contiguous()
+    bounce = Ray(origin=Vec3(*cols(o)), direction=Vec3(*cols(d)), time=ray.time)
+    cap = sphlib.intersect(scene.arrays.spheres, bounce, cfg.t_min, cfg.t_max).t
+    cap = torch.where(hit.valid, cap, torch.full_like(cap, -1.0))
+    return cols(o), cols(d), cap.contiguous()
+
+
 def frame(scene, camera, cfg, seed, counters):
     """One timed frame through make_frame_step, with the launch counts of
     that run -> (image, seconds, iterations, {kernel: launches}, peak bytes)."""
@@ -505,6 +537,11 @@ def run(device: torch.device, card: str, profile: bool) -> list:
                      cap.contiguous(), *pk_tri)}
     res_tri = check_bvh_kernel("tri", cases["tri"], mcfg.t_min, mcfg.t_max,
                                "(a) mesh-200k primary rays, sphere-capped", time_it=True)
+    # (c) the rays of a second shade iteration: where the walks diverge
+    bounce = bounce_rays(mscene, mray, mcfg, gen)
+    bounce_cases = {"tri": (*bounce, *pk_tri)}
+    res_tri_bounce = check_bvh_kernel("tri", bounce_cases["tri"], mcfg.t_min, mcfg.t_max,
+                                      "(c) mesh-200k bounce rays, sphere-capped", time_it=True)
     # (b) divergent rays from inside and around the knot's bounds
     root = tri.pk_bb[0, 0, :6]
     o, d, cap = random_rays(gen, 16_384, root[:3] - 1.0, root[3:] + 1.0, device)
@@ -554,9 +591,14 @@ def run(device: torch.device, card: str, profile: bool) -> list:
               "box": "144-box field, inside starts", "sphere": "8,192 random spheres"}
     res_pkt = {k: check_packet_kernel(k, cases[k], cuts[k], mcfg.t_min, mcfg.t_max,
                                       labels[k], time_it=True) for k in cases}
-    for k, pk in (("tri", pk_tri), ("tri_mxu", (xtri.pk_bb, xtri.pk_links, xtri.pk_tri))):
+    pk_mxu = (xtri.pk_bb, xtri.pk_links, xtri.pk_tri)
+    for k, pk in (("tri", pk_tri), ("tri_mxu", pk_mxu)):
         check_packet_kernel(k, (*div_rays, *pk), cuts[k], mcfg.t_min, mcfg.t_max,
                             "divergent rays", time_it=False)
+    bounce_cases["tri_mxu"] = (*bounce, *pk_mxu)
+    res_pkt_bounce = {k: check_packet_kernel(k, bounce_cases[k], cuts[k], mcfg.t_min,
+                                             mcfg.t_max, "mesh-200k bounce rays", time_it=True)
+                      for k in bounce_cases}
     ta, tb = res_pkt["tri"]["out"][0], res_pkt["tri_mxu"]["out"][0]
     both = (ta < BIG) & (tb < BIG)
     rel = ((ta - tb).abs() / ta)[both]
@@ -607,13 +649,6 @@ def run(device: torch.device, card: str, profile: bool) -> list:
         phase("golden", f"{name}: max|d thumb|={res['dthumb']!r} (<= {golden.THUMB_ATOL}), "
               f"max|d mean|={res['dmean']!r} (<= {golden.MEAN_ATOL}); launches "
               f"{nonzero(anchor_launches[name])}")
-    for name in OPEN_ANCHORS:
-        res = golden.anchor_drift(name, ref, device)
-        phase("golden", f"{name} (open fault, thumbnail not held): max|d thumb|="
-              f"{res['dthumb']!r} with {res['blocks_beyond']} blocks beyond {golden.THUMB_ATOL}, "
-              f"max|d mean|={res['dmean']!r} (<= {golden.MEAN_ATOL})")
-        if res["dmean"] > golden.MEAN_ATOL:
-            raise AssertionError(f"{name}: global mean drifted by {res['dmean']}")
     want = {"mesh": "bvh_traverse/tri", "mesh-binned": "bvh_traverse/tri",
             "boxfield-kernel": "bvh_traverse/box", "book1-spherebvh": "bvh_traverse/sphere",
             **{name: "bvh_traverse/" + name.split("/", 1)[1]
@@ -767,29 +802,50 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     if d_img > SUMS_ATOL or launches["bvh_traverse/packet/tri"] == 0:
         raise AssertionError("render_sums disagrees with the frame step")
 
-    # mesh-800k: leaf blocks above the stream threshold, K = 1
-    t0 = time.perf_counter()
-    bscene8, bcam8 = golden.mesh_scene(mcfg, device, *KNOT_800K)
-    torch.cuda.synchronize()
-    compile8 = time.perf_counter() - t0
-    tri8 = bscene8.arrays.triangles
-    leaf_bytes = tri8.pk_tri.numel() * 4
-    img, seconds, iterations, launches, peak = frame(bscene8, bcam8, mcfg, MESH_SEED, counters)
-    seconds8 = seconds
-    phase("main", f"mesh-800k ({int((tri8.mat_id != -2).sum())} triangles, pk_bb "
-          f"{tuple(tri8.pk_bb.shape)}, leaf blocks {leaf_bytes} B > "
-          f"{bt.stream_bytes()} B) {MESH_W}x{MESH_H}@{MESH_SPP}spp depth {MESH_DEPTH}, "
-          f"first frame on {card}: {seconds!r} s, "
-          f"{MESH_W * MESH_H * MESH_SPP / seconds / 1e6!r} Mprimary-rays/s, {iterations} "
-          f"shade iterations, launches {nonzero(launches)}, peak {peak} B allocated, host "
-          f"compile {compile8!r} s; image mean {img.mean()!r}, std {img.std()!r}")
-    stream_launches = launches["bvh_traverse/packet/tri+stream"]
-    if leaf_bytes <= bt.stream_bytes() or stream_launches < iterations:
-        raise AssertionError("mesh-800k did not take the streamed packet kernel by the "
-                             "auto rule")
-    # the packet kernel at this frame's shape (one node order, 18,487 nodes,
-    # streamed leaves) against the plain version: 8,192 of its primary rays,
-    # 64 whole packets spread over the frame, some dead and some capped
+    # mesh-800k: leaf blocks above the stream threshold; 18,487 nodes, which
+    # the port's node cap gives the 8 octant orders and the JAX package's cap
+    # one order. The frame on the 8 orders (on the one-order tree too when
+    # profiling), and the one-order tree held against the plain version (the
+    # K = 1 walk)
+    def compile_800k(cap):
+        cap0, scene_mod.OCTANT_CAP = scene_mod.OCTANT_CAP, cap
+        try:
+            t0 = time.perf_counter()
+            sc, cam_ = golden.mesh_scene(mcfg, device, *KNOT_800K)
+            torch.cuda.synchronize()
+            return sc, cam_, time.perf_counter() - t0
+        finally:
+            scene_mod.OCTANT_CAP = cap0
+
+    runs8 = {}
+    for label, cap, orders in (("8 octant orders", scene_mod.OCTANT_CAP, 8),
+                               ("one node order", SINGLE_ORDER_CAP, 1)):
+        sc8, bcam8, compile8 = compile_800k(cap)
+        tri8 = sc8.arrays.triangles
+        leaf_bytes = tri8.pk_tri.numel() * 4
+        if tri8.pk_bb.shape[0] != orders:
+            raise AssertionError(f"mesh-800k's tree has {tri8.pk_bb.shape[0]} node orders, "
+                                 f"not {orders}")
+        if orders == 1 and not profile:
+            continue
+        img, seconds, iterations, launches, peak = frame(sc8, bcam8, mcfg, MESH_SEED, counters)
+        runs8[label] = (sc8, seconds, launches)
+        phase("main", f"mesh-800k, {label} ({int((tri8.mat_id != -2).sum())} triangles, pk_bb "
+              f"{tuple(tri8.pk_bb.shape)}, leaf blocks {leaf_bytes} B > "
+              f"{bt.stream_bytes()} B) {MESH_W}x{MESH_H}@{MESH_SPP}spp depth {MESH_DEPTH}, "
+              f"first frame on {card}: {seconds!r} s, "
+              f"{MESH_W * MESH_H * MESH_SPP / seconds / 1e6!r} Mprimary-rays/s, {iterations} "
+              f"shade iterations, launches {nonzero(launches)}, peak {peak} B allocated, host "
+              f"compile {compile8!r} s; image mean {img.mean()!r}, std {img.std()!r}")
+        if (leaf_bytes <= bt.stream_bytes()
+                or launches["bvh_traverse/packet/tri+stream"] < iterations):
+            raise AssertionError("mesh-800k did not take the streamed packet kernel by the "
+                                 "auto rule")
+    stream_launches = runs8["8 octant orders"][2]["bvh_traverse/packet/tri+stream"]
+    bscene8 = runs8["8 octant orders"][0]
+    # the packet kernel on the one-order tree (18,487 nodes, streamed leaves)
+    # against the plain version: 8,192 of its primary rays, 64 whole packets
+    # spread over the frame, some dead and some capped
     ray8 = primary_rays(bcam8, MESH_W, MESH_H, mcfg.sqrt_spp, device)
     o8, d8 = ray8.origin.to_array(), ray8.direction.to_array()
     pick = (torch.arange(64, device=device)[:, None] * (MESH_W * MESH_H // 64)
@@ -797,27 +853,30 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     cap8 = torch.full((pick.numel(),), BIG, device=device)
     cap8[::3] = torch.rand(cap8[::3].numel(), generator=gen, device=device) * 6.0 + 0.5
     cap8[5::10] = -1.0
-    if tri8.pk_bb.shape[0] != 1:
-        raise AssertionError("mesh-800k's tree does not keep one node order")
     res8 = check_packet_kernel("tri", (cols(o8[pick]), cols(d8[pick]), cap8, tri8.pk_bb,
                                        tri8.pk_links, tri8.pk_tri),
                                (tri8.pk_cbb, tri8.pk_crange), mcfg.t_min, mcfg.t_max,
                                "mesh-800k primary rays, one node order", time_it=False)
     if res8["hits"] < 100:
         raise AssertionError(f"mesh-800k check: only {res8['hits']} rays hit")
-    # one streamed call of all its primary rays against the resident read
-    args8 = (cols(o8), cols(d8),
-             torch.full((MESH_W * MESH_H,), BIG, device=device), tri8.pk_bb, tri8.pk_links,
-             tri8.pk_tri)
-    call8 = lambda st: bt.bvh_traverse(*args8, mcfg.t_min, mcfg.t_max, kind="tri",
-                                       packet=True, stream=st)
-    same8 = all(bool(torch.equal(a, b)) for a, b in zip(call8(True), call8(False)))
-    ms8 = {st: time_ms(lambda: call8(st)) for st in (True, False)}
+    # one call of all its primary rays: streamed against the resident read,
+    # on the trees whose frame ran
+    uncapped = torch.full((MESH_W * MESH_H,), BIG, device=device)
+    for label, (sc8, _, _) in runs8.items():
+        t8 = sc8.arrays.triangles
+        args8 = (cols(o8), cols(d8), uncapped, t8.pk_bb, t8.pk_links, t8.pk_tri)
+        call8 = lambda st: bt.bvh_traverse(*args8, mcfg.t_min, mcfg.t_max, kind="tri",
+                                           packet=True, stream=st)
+        same8 = all(bool(torch.equal(a, b)) for a, b in zip(call8(True), call8(False)))
+        ms8 = {st: time_ms(lambda: call8(st)) for st in (True, False)}
+        per_ray8 = time_ms(lambda: bt.bvh_traverse(*args8, mcfg.t_min, mcfg.t_max, kind="tri",
+                                                   packet=False, stream=False))
+        phase("main", f"mesh-800k primary rays, {label}, packet tri: stream {ms8[True]!r} ms, "
+              f"resident read {ms8[False]!r} ms per call; per-ray kernel {per_ray8!r} ms "
+              f"(medians of {TIMING_RUNS}), streamed and resident outputs equal {same8}")
+        if not same8:
+            raise AssertionError("mesh-800k: the streamed call differs from the resident one")
     counters.reset()
-    phase("main", f"mesh-800k primary rays, packet tri: stream {ms8[True]!r} ms, resident "
-          f"read {ms8[False]!r} ms per call (median of {TIMING_RUNS}), outputs equal {same8}")
-    if not same8:
-        raise AssertionError("mesh-800k: the streamed call differs from the resident one")
 
     t0 = time.perf_counter()
     ascene, acam = golden.mesh_scene(mcfg, device, *KNOT_AREA)
@@ -833,30 +892,18 @@ def run(device: torch.device, card: str, profile: bool) -> list:
         raise AssertionError("mesh+arealight did not go through the traversal kernel")
 
     if profile:
-        profile_kernels(cases, mcfg.t_min, mcfg.t_max)
+        profile_kernels(cases, mcfg.t_min, mcfg.t_max, "primary rays")
+        profile_kernels(bounce_cases, mcfg.t_min, mcfg.t_max, "bounce rays")
         for label, (sc, run_cfg, env, _) in mesh_cfgs.items():
             with golden.traversal_env(**env):
                 profile_mesh_frame(sc, mcam, run_cfg, f"mesh-200k, {label}",
                                    mesh_runs[label][0])
-        profile_mesh_frame(bscene8, bcam8, mcfg, "mesh-800k", seconds8)
+        for label, (sc8, sec8, _) in runs8.items():
+            profile_mesh_frame(sc8, bcam8, mcfg, f"mesh-800k, {label}", sec8)
         ucfg = mcfg.replace(mesh_bin="never")
         _, useconds, _, _, _ = frame(bscene8, bcam8, ucfg, MESH_SEED, counters)
-        profile_mesh_frame(bscene8, bcam8, ucfg, "mesh-800k, unbinned", useconds)
-        # what the node cap costs mesh-800k: the same mesh with the cap lifted,
-        # so that its 18,487 nodes get the 8 front-to-back octant orders
-        cap0, scene_mod.OCTANT_CAP = scene_mod.OCTANT_CAP, 1 << 30
-        try:
-            oscene, _ = golden.mesh_scene(mcfg, device, *KNOT_800K)
-        finally:
-            scene_mod.OCTANT_CAP = cap0
-        otri = oscene.arrays.triangles
-        oargs = (*args8[:3], otri.pk_bb, otri.pk_links, otri.pk_tri)
-        oms = time_ms(lambda: bt.bvh_traverse(*oargs, mcfg.t_min, mcfg.t_max, kind="tri"))
-        _, oseconds, oiter, olaunches, _ = frame(oscene, bcam8, mcfg, MESH_SEED, counters)
-        phase("profile", f"mesh-800k with the node cap lifted, pk_bb {tuple(otri.pk_bb.shape)}: "
-              f"primary rays {oms!r} ms per call against {ms8[True]!r} ms with one order; "
-              f"frame {oseconds!r} s, {oiter} iterations, launches {nonzero(olaunches)}")
-        profile_mesh_frame(oscene, bcam8, mcfg, "mesh-800k, 8 octant orders", oseconds)
+        profile_mesh_frame(bscene8, bcam8, ucfg, "mesh-800k, 8 octant orders, unbinned",
+                           useconds)
 
     # the kernels' records: `launches` from a main-path run (a frame where one
     # runs the kernel or mode, else its forced anchor render)
@@ -885,6 +932,9 @@ def run(device: torch.device, card: str, profile: bool) -> list:
                         "launches": n_launch, "max_abs_err": res["max_abs_err"],
                         "ms": res["ms"], "plain_ms": res["plain_ms"],
                         "bound_ms": res["bound_ms"], "bound_by": res["bound_by"]})
+        if k == "tri":  # its time on the bounce rays, beside its bound there
+            records[-1].update(bounce_ms=res_tri_bounce["ms"],
+                               bounce_bound_ms=res_tri_bounce["bound_ms"])
     frame_launches = {label: run[2] for label, run in mesh_runs.items()}
     frame_launches["mesh-800k"] = {"bvh_traverse/packet/tri+stream": stream_launches}
     for k, res in res_pkt.items():
@@ -899,6 +949,9 @@ def run(device: torch.device, card: str, profile: bool) -> list:
                             "max_abs_err": res["err"], "ms": res["ms"][(stream, two_level)],
                             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                             "bound_by": res["bound_by"]})
+            if k in res_pkt_bounce:
+                records[-1].update(bounce_ms=res_pkt_bounce[k]["ms"][(stream, two_level)],
+                                   bounce_bound_ms=res_pkt_bounce[k]["bound_ms"])
     # the probes, at the entry point's case (mesh-200k): the TPU probe each
     # replaces, by the line of its pallas_call
     ab, lat = "scripts/kern_ab.py:", "scripts/kern_lat.py:"
@@ -936,11 +989,11 @@ def _device_events(prof) -> list:
             if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
 
 
-def profile_kernels(cases: dict, t_min, t_max, repeats: int = 5):
+def profile_kernels(cases: dict, t_min, t_max, label: str, repeats: int = 5):
     """torch.profiler device time per call of each traversal kind through the
     per-ray kernel (tri, box, sphere) and the packet kernel (all four, modes
     off), all under one profiler with `repeats` calls each, on the inputs of
-    phase 3."""
+    phase 3 (`label` names the rays)."""
     from torch.profiler import ProfilerActivity, profile
 
     from raysnail_tpu_torch.ops import bvh_traverse as bt
@@ -966,7 +1019,7 @@ def profile_kernels(cases: dict, t_min, t_max, repeats: int = 5):
         mine = [e for e in events if tag in e.key.replace("(bool)0", "false")]
         calls = sum(e.count for e in mine)
         per_call = sum(_dev_us(e) for e in mine) / 1e3 / max(calls, 1)
-        phase("profile", f"{'packet' if packet else 'per-ray'} {kind}, "
+        phase("profile", f"{'packet' if packet else 'per-ray'} {kind}, {label}, "
               f"N={cases[kind][0][0].shape[0]}: {per_call!r} ms device time per call "
               f"({calls} calls seen)")
 

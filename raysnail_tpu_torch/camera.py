@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from raysnail_tpu_torch.config import entry_device
 from raysnail_tpu_torch.prelude import rng as prng
 from raysnail_tpu_torch.prelude import sampling
 from raysnail_tpu_torch.prelude.vec import Vec3
@@ -50,10 +51,12 @@ def build_camera(
     width: int = 400,
     height: int = 200,
     dtype=torch.float32,
-    device=None,
+    device="cuda",
 ) -> Camera:
     """CameraBuilder equivalent (camera.rs:300-414 defaults: fov 90,
-    aperture 0, focus 1, 400x200)."""
+    aperture 0, focus 1, 400x200), on the card unless `device` says
+    otherwise."""
+    device = entry_device(device)
     if aspect_ratio is None:
         aspect_ratio = width / height
 

@@ -25,6 +25,17 @@ import torch
 REGEN_CHUNK_CAP = 21
 
 
+def entry_device(device="cuda") -> torch.device:
+    """The device of a library entry point: the card, unless the caller
+    names another. Asking for the card where there is none raises; nothing
+    falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(dev)!r} asked for, but no CUDA device is available; "
+                           "pass device=\"cpu\" to run the plain PyTorch versions")
+    return dev
+
+
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Static configuration of the renderer (hashable Python values)."""

@@ -42,9 +42,30 @@ class BoxGroup(NamedTuple):
     pk_crange: torch.Tensor | None = None  # (K, 64, 4) i32 [start, end) node ranges
 
 
+def _fma(a, b, c):
+    """a * b + c with the product kept exact, on either device: the product
+    of two float32 values is exact in float64, the sum rounds to float64 and
+    then to float32. That is a fused multiply-add's single rounding except
+    where the exact sum lies within 2**-29 of a float32 ulp of the midpoint
+    of two float32 values (two roundings can then differ from one by an
+    ulp)."""
+    return torch.addcmul(c.double(), a.double(), b.double()).to(a.dtype)
+
+
 def _apply_rows(rows, off, v: Vec3, translate: bool) -> Vec3:
+    """The world -> object affine of an oriented primitive. Each row's dot
+    product rounds where the JAX package's one does when XLA compiles it for
+    the CPU (x and z products fused into the sums, the y product rounded on
+    its own; the pattern is that compiler's choice, not a rule of the
+    arithmetic, and the package run op by op rounds every product): a ray
+    that meets an oriented face 900 units away otherwise lands 1e-4 to the
+    other side of it, and its path with it."""
     r0, r1, r2 = rows
-    out = Vec3(r0.dot(v), r1.dot(v), r2.dot(v))
+
+    def dot(r):
+        return _fma(r.z, v.z, _fma(r.x, v.x, r.y * v.y))
+
+    out = Vec3(dot(r0), dot(r1), dot(r2))
     if translate:
         out = out + off
     return out

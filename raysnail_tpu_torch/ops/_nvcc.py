@@ -3,8 +3,9 @@ ctypes.
 
 The port's CUDA kernels (`csrc/*.cu`, with nvcc) and its native BVH builder
 (`accel/native/bvh_builder.cpp`, with g++) are built at first use into
-`_build/`, under a name keyed by a hash of the source and the flags, so an
-edited source or a changed flag builds anew and an unchanged one is reused.
+`_build/`, under a name keyed by a hash of the source, of the headers it may
+include (`csrc/*.cuh`) and of the flags, so an edited source or header or a
+changed flag builds anew and an unchanged one is reused.
 A failed build raises with the compiler's output.
 """
 
@@ -37,20 +38,22 @@ def nvcc() -> str:
                        "toolkit to build")
 
 
-def library_path(source: str, flags) -> str:
-    """The library's path for `source` built with `flags`."""
+def library_path(source: str, flags, headers=()) -> str:
+    """The library's path for `source` (and the `headers` it may include)
+    built with `flags`."""
     h = hashlib.sha256()
-    with open(source, "rb") as f:
-        h.update(f.read())
+    for path in (source, *headers):
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(flags).encode())
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
 
 
-def build(source: str, compiler: str, flags, verbose: bool = False) -> str:
+def build(source: str, compiler: str, flags, verbose: bool = False, headers=()) -> str:
     """Compile `source` into its library if that is missing; -> the path.
     verbose=True prints the compiler's output (e.g. nvcc's -Xptxas -v)."""
-    path = library_path(source, flags)
+    path = library_path(source, flags, headers)
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -74,4 +77,5 @@ def build(source: str, compiler: str, flags, verbose: bool = False) -> str:
 
 def build_cuda(name: str, verbose: bool = False) -> str:
     """Build `csrc/<name>.cu` with nvcc; -> the library path."""
-    return build(os.path.join(CSRC, f"{name}.cu"), nvcc(), NVCC_FLAGS, verbose)
+    headers = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    return build(os.path.join(CSRC, f"{name}.cu"), nvcc(), NVCC_FLAGS, verbose, headers)

@@ -12,15 +12,24 @@ version: a build or launch failure raises.
 
   * the per-ray kernel `csrc/bvh_traverse.cu` (kinds "tri", "box",
     "sphere"): one thread owns one ray and walks the DFS order of the ray's
-    own direction octant;
+    own direction octant. It defers the leaves it admits (up to 8) and the
+    warp sweeps them together;
   * the packet kernel `csrc/bvh_packet.cu` (kinds "tri", "tri_mxu", "box",
     "sphere", each with `stream` and `two_level` on or off): a thread block
-    owns a packet of PACKET consecutive rays and walks ONE node order for
+    owns a packet of PACKET consecutive rays and picks ONE node order for
     it, the order of the sign of the packet's summed directions, as the TPU
-    kernel does. `stream` stages admitted leaf blocks in a shared-memory
-    ring; `two_level` walks only inside admitted entries of the coarse cut
+    kernel does; each of its warps walks that order on its own. `stream`
+    stages deferred leaf blocks in a shared-memory ring per warp (filled
+    by the bulk copy engine);
+    `two_level` walks only inside admitted entries of the coarse cut
     (`accel.bvh.coarse_cut`); "tri_mxu" solves the triangles with the
     feature product of the TPU kernel's matrix-unit kind.
+
+Both kernels sweep a deferred leaf only for the rays that still admit it
+with their fresh best t, primitive-parallel (`csrc/bvh_sweep.cuh`): the
+warp sweeps for one ray at a time, each lane four primitives. How many
+leaves are deferred, and the slots of a `stream` ring, are constants of the
+kernels (`kDepth`, `Shape<KIND>::ring`); no result depends on them.
 
 `packet=None` picks the packet kernel when the call needs it (kind
 "tri_mxu", `stream` or `two_level`), else the per-ray kernel. `stream=None`
@@ -71,17 +80,13 @@ WIDTH = {"tri": LANES, "box": LANES, "sphere": LANES, "tri_mxu": MXU_LANES}
 _KIND_ID = {"tri": 0, "box": 1, "sphere": 2, "tri_mxu": 3}
 _PER_RAY_KINDS = ("tri", "box", "sphere")
 # floats of a leaf block that its sweep reads, which is what `stream` stages
-# (Shape<KIND>::staged in csrc/bvh_packet.cu): tri rows 0-9 (5,120 B), box
+# (Shape<KIND>::staged in csrc/bvh_sweep.cuh): tri rows 0-9 (5,120 B), box
 # rows 0-6 (3,584 B), sphere rows 0-4 (2,560 B), tri_mxu the solve table and
 # the valid row (20,992 B); and the words of the winner's column that the
 # epilogue reads once per ray that hit
 STAGED_FLOATS = {"tri": 10 * LANES, "box": 7 * LANES, "sphere": 5 * LANES,
                  "tri_mxu": 10 * 512 + LANES}
 ATTR_WORDS = {"tri": 10, "box": 7, "sphere": 5, "tri_mxu": 10}
-# shared-memory ring depth of the packet kernel's `stream` mode per kind: the
-# leaves a packet collects before it sweeps them; 1 to MAX_DEPTH
-RING_DEPTH = {"tri": 8, "box": 8, "sphere": 8, "tri_mxu": 4}
-MAX_DEPTH = 8
 
 _libs = {}
 
@@ -107,11 +112,11 @@ def _load(name: str):
         if name == "bvh_traverse":
             lib = ctypes.CDLL(build())
             fn = lib.bvh_traverse_launch
-            fn.argtypes = [c_int] + [ptr] * 10 + [c_int] * 4 + [c_float, c_float, ptr, ptr, ptr]
+            fn.argtypes = [c_int] + [ptr] * 10 + [c_int] * 3 + [c_float, c_float, ptr, ptr, ptr]
         else:
             lib = ctypes.CDLL(build_packet())
             fn = lib.bvh_packet_launch
-            fn.argtypes = ([c_int] + [ptr] * 12 + [c_int] * 6
+            fn.argtypes = ([c_int] + [ptr] * 12 + [c_int] * 5
                            + [c_float, c_float, ptr, ptr, ptr])
         fn.restype = c_int
         _libs[name] = lib
@@ -443,8 +448,8 @@ def bvh_traverse(origin_xyz, dir_xyz, t_cap, pk_bb, pk_links, pk_prim, t_min, t_
     A miss gives t = BIG, zero attributes and mat 0.
 
     stream: None = auto (leaf blocks above `stream_bytes()`); True stages
-    admitted leaves in the packet kernel's shared-memory ring of
-    RING_DEPTH[kind] slots. cbb (K, 64, 8) f32 and crange (K, 64, 4) i32 are
+    deferred leaves in the packet kernel's shared-memory rings, one per
+    warp. cbb (K, 64, 8) f32 and crange (K, 64, 4) i32 are
     the coarse cut (scene._leaf_tree). two_level: None =
     RAYSNAIL_BVH_TWO_LEVEL=1 where the group has a cut, as in the TPU
     wrapper; True without both arrays raises. packet: None = the packet
@@ -499,16 +504,13 @@ def bvh_traverse(origin_xyz, dir_xyz, t_cap, pk_bb, pk_links, pk_prim, t_min, t_
     with torch.cuda.device(device):
         cu_stream = torch.cuda.current_stream(device).cuda_stream
         if packet:
-            depth = int(RING_DEPTH[kind])
-            if not 1 <= depth <= MAX_DEPTH:
-                raise ValueError(f"bvh_traverse: ring depth {depth} is not in 1..{MAX_DEPTH}")
             cut = [cbb.data_ptr(), crange.data_ptr()] if two_level else [None, None]
             err = _load("bvh_packet").bvh_packet_launch(
                 _KIND_ID[kind], *ptrs, *cut, n, m, k_ord, int(stream), int(two_level),
-                depth, float(t_min), float(t_max), out.data_ptr(), mat.data_ptr(), cu_stream)
+                float(t_min), float(t_max), out.data_ptr(), mat.data_ptr(), cu_stream)
         else:
             err = _load("bvh_traverse").bvh_traverse_launch(
-                _KIND_ID[kind], *ptrs, n, m, k_ord, NF[kind], float(t_min), float(t_max),
+                _KIND_ID[kind], *ptrs, n, m, k_ord, float(t_min), float(t_max),
                 out.data_ptr(), mat.data_ptr(), cu_stream)
     key = launch_key(kind, packet, stream, two_level)
     if err != 0:

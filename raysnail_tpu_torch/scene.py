@@ -31,6 +31,7 @@ from raysnail_tpu_torch import ir
 from raysnail_tpu_torch import lights as lightslib
 from raysnail_tpu_torch import materials as matlib
 from raysnail_tpu_torch import textures as texlib
+from raysnail_tpu_torch.config import entry_device
 from raysnail_tpu_torch.accel.bvh import build_bvh, coarse_cut, relinearize_octants
 from raysnail_tpu_torch.geometry import boxes, quadrics, rects, spheres, triangles
 from raysnail_tpu_torch.geometry import transforms as tf
@@ -42,7 +43,13 @@ from raysnail_tpu_torch.prelude.vec import Vec3
 BOX_BVH_MIN_BUILD = 130    # axis-aligned box groups this large get a packed BVH
 SPHERE_PACK_MIN = 64       # static sphere groups this large get a packed BVH
 BRUTE_FORCE_MAX = 32768    # meshes up to this many triangles: dense sweep on the CPU
-OCTANT_CAP = 4600          # trees up to this many nodes get 8 octant orders
+# trees up to this many nodes get the 8 direction-octant orders. The JAX
+# package's cap, 4,600, is the size of the TPU's scalar memory; this card
+# reads nodes through its 50 MB L2, so the cap is where the 8 orders' node
+# arrays (8 x M x 48 bytes) reach a quarter of it. Between the two caps this
+# compile has 8 orders where the JAX package's has one: the results differ
+# only in the order leaves are visited, i.e. in which of two tied hits wins.
+OCTANT_CAP = 32768
 
 _NOT_PORTED = {
     ir.Csg: "CSG (ROADMAP M13)",
@@ -187,10 +194,12 @@ class SceneBuilder:
         self.background = (tuple(c1), tuple(c2) if c2 is not None else tuple(c1))
         return self
 
-    def compile(self, dtype=torch.float32, device="cpu", mesh_solver=None) -> Scene:
-        """mesh_solver: "cramer" or "mxu", the format of the meshes' leaf
-        blocks; None reads RAYSNAIL_MESH_SOLVER (default "cramer")."""
-        return _compile(self, dtype, torch.device(device), mesh_solver)
+    def compile(self, dtype=torch.float32, device="cuda", mesh_solver=None) -> Scene:
+        """Lower the scene onto `device`: the card, unless the caller names
+        another (no card raises). mesh_solver: "cramer" or "mxu", the format
+        of the meshes' leaf blocks; None reads RAYSNAIL_MESH_SOLVER (default
+        "cramer")."""
+        return _compile(self, dtype, entry_device(device), mesh_solver)
 
 
 class _Tables:

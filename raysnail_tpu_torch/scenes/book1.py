@@ -90,7 +90,7 @@ def balls_scene(seed: int = 7, need_speed: bool = False) -> SceneBuilder:
     return builder
 
 
-def balls_camera(width: int, height: int, need_shutter: bool = False, device=None):
+def balls_camera(width: int, height: int, need_shutter: bool = False, device="cuda"):
     """scene.rs:193-208: 13,2,3 -> origin, fov 20, aperture 0.02, focus 10."""
     return build_camera(look_from=(13.0, 2.0, 3.0), look_at=(0.0, 0.0, 0.0), fov=20.0,
                         aperture=0.02, focus_distance=10.0,

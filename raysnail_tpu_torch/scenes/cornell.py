@@ -52,7 +52,7 @@ def cornell_box(carton: bool = True, carton_rotation: bool = True,
     return b
 
 
-def cornell_camera(width: int, height: int, device=None):
+def cornell_camera(width: int, height: int, device="cuda"):
     """scene.rs:327-331: 278,278,-800 -> 278,278,0, fov 40."""
     return build_camera(look_from=(278.0, 278.0, -800.0), look_at=(278.0, 278.0, 0.0),
                         fov=40.0, width=width, height=height, device=device)

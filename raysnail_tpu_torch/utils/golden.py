@@ -180,7 +180,7 @@ def forced_mode_configs(device):
     return out
 
 
-def render_anchor(name: str, device="cpu") -> np.ndarray:
+def render_anchor(name: str, device="cuda") -> np.ndarray:
     """Render anchor `name`, or one of `forced_mode_configs`' entries."""
     from raysnail_tpu_torch.render import render
 
@@ -208,7 +208,7 @@ def load_golden() -> dict:
     return {n: {f: data[f"{n}/{f}"] for f in ("thumb", "mean", "std")} for n in names}
 
 
-def anchor_drift(name: str, golden: dict, device="cpu") -> dict:
+def anchor_drift(name: str, golden: dict, device="cuda") -> dict:
     """Render `name` on `device` -> its drift from the committed stats:
     {"dthumb", "dmean", "blocks_beyond" (thumbnail blocks past THUMB_ATOL)}."""
     fresh = anchor_stats(render_anchor(name, device))
@@ -221,7 +221,7 @@ def anchor_drift(name: str, golden: dict, device="cpu") -> dict:
             "blocks_beyond": int((block_err > THUMB_ATOL).sum())}
 
 
-def check_anchor(name: str, golden: dict, device="cpu") -> dict:
+def check_anchor(name: str, golden: dict, device="cuda") -> dict:
     """Render `name` on `device` and hold it against its committed stats
     within THUMB_ATOL and MEAN_ATOL -> its `anchor_drift`; raises
     AssertionError on drift."""

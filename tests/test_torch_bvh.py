@@ -105,7 +105,7 @@ def _compile_both(name):
         jb.add(obj)
     for obj in SCENES[name](tir):
         tb.add(obj)
-    return jb.compile(), tb.compile()
+    return jb.compile(), tb.compile(device="cpu")
 
 
 def _assert_same(a, b, where):
@@ -146,7 +146,7 @@ def test_book1_scene_equals_the_jax_compile():
     from raysnail_tpu_torch.scenes import book1 as tbook1
 
     jarrays = jax.tree_util.tree_map(np.asarray, jbook1.balls_scene(7).compile().arrays)
-    got = tbook1.balls_scene(7).compile().arrays
+    got = tbook1.balls_scene(7).compile(device="cpu").arrays
     assert got.spheres.pk_bb is not None
     _assert_same(got, scene_arrays_from_numpy(jarrays, "cpu"), "book1")
 
@@ -156,7 +156,7 @@ def test_small_groups_stay_unpacked():
     for b, ir in ((jb, jir), (tb, tir)):
         for obj in _sphere_set(ir, 63) + _box_field(ir)[:129]:
             b.add(obj)
-    tscene = tb.compile()
+    tscene = tb.compile(device="cpu")
     assert tscene.arrays.spheres.pk_bb is None and tscene.arrays.boxes.pk_bb is None
     assert jb.compile().arrays.spheres.pk_bb is None
 

@@ -11,8 +11,7 @@ every product and sum as their plain versions' separate elementwise kernels
 do: the sphere sweep's t bit-equal and idx equal; the BVH traversal's t and
 every attribute bit-equal, so the same winner on every ray, ties included.
 That holds for both traversal kernels, and for the packet kernel in every
-kind (tri, tri_mxu, box, sphere), with `stream` and `two_level` on and off
-and at every ring depth.
+kind (tri, tri_mxu, box, sphere), with `stream` and `two_level` on and off.
 """
 
 import numpy as np
@@ -185,20 +184,83 @@ def test_packet_kernel_matches_plain(cuda_device, kind, stream, two_level):
     assert bool((t[cap <= 0] == 1e30).all())
 
 
+def _routes():
+    """Every kernel route: (kind, packet, stream, two_level)."""
+    return ([(k, False, False, False) for k in ("tri", "box", "sphere")]
+            + [(k, True, s, t) for k in ("tri", "tri_mxu", "box", "sphere")
+               for s in (False, True) for t in (False, True)])
+
+
+_cases = {}
+
+
+def cached_case(kind, device):
+    if kind not in _cases:
+        _cases[kind] = bvh_case(kind, 9, 6_029, device, with_cut=True)
+    return _cases[kind]
+
+
+def shaped_rays(shape, args, device):
+    """The rays of `args` cut or rearranged into one of the shapes that a
+    warp-cooperative kernel can get wrong -> (origin, direction, t_cap)."""
+    o, d, cap = (torch.stack(args[0], 1), torch.stack(args[1], 1), args[2].clone())
+    lo, hi = args[3][0, 0, :3], args[3][0, 0, 3:6]
+    if shape == "n1":
+        o, d, cap = o[40:41], d[40:41], torch.full((1,), 1e30, device=device)
+    elif shape == "n33":
+        o, d, cap = o[:33], d[:33], cap[-33:]
+    elif shape == "dead-warp":  # the second warp of the second block holds no live ray
+        o, d = o[:300], d[:300]
+        cap = cap[-300:].clone()
+        cap[160:192] = -1.0
+    elif shape == "one-fills":
+        # per warp one ray along the scene's long diagonal, which admits leaf
+        # after leaf, and 31 rays that start outside and point away
+        n = 256
+        o = (hi + 1.0).repeat(n, 1)
+        d = torch.ones(n, 3, device=device) / 3 ** 0.5
+        cap = torch.full((n,), 1e30, device=device)
+        for lane in range(5, n, 32):
+            o[lane] = lo - 0.5
+            d[lane] = (hi - lo) / (hi - lo).norm()
+    elif shape == "shuffled":  # coherent rays from one point, in a random order
+        gen = torch.Generator(device=device).manual_seed(3)
+        n = 4_099
+        eye = hi + (hi - lo)
+        target = lo + torch.rand(n, 3, generator=gen, device=device) * (hi - lo)
+        d = target - eye
+        d = d / d.norm(dim=1, keepdim=True)
+        perm = torch.randperm(n, generator=gen, device=device)
+        o, d = eye.repeat(n, 1), d[perm]
+        cap = torch.full((n,), 1e30, device=device)
+    else:
+        raise ValueError(shape)
+    return (tuple(o[:, i].contiguous() for i in range(3)),
+            tuple(d[:, i].contiguous() for i in range(3)), cap.contiguous())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["tri", "tri_mxu"])
-def test_packet_kernel_gives_the_same_at_every_ring_depth(cuda_device, kind, monkeypatch):
-    *args, cbb, crange = bvh_case(kind, 6, 10_007, cuda_device, with_cut=True)
-    call = lambda: bt.bvh_traverse(*args, TMIN, TMAX, kind=kind, stream=True,
-                                   two_level=True, cbb=cbb, crange=crange)
-    ref = call()
-    for depth in (1, 2, 3, bt.MAX_DEPTH):
-        monkeypatch.setitem(bt.RING_DEPTH, kind, depth)
-        for a, b in zip(call(), ref):
-            assert torch.equal(a, b)
-    monkeypatch.setitem(bt.RING_DEPTH, kind, bt.MAX_DEPTH + 1)
-    with pytest.raises(ValueError, match="ring depth"):
-        call()
+@pytest.mark.parametrize("shape", ["n1", "n33", "dead-warp", "one-fills", "shuffled"])
+@pytest.mark.parametrize("route", _routes(), ids=lambda r: bt.launch_key(*r))
+def test_kernels_match_plain_on_awkward_warps(cuda_device, route, shape):
+    """One ray, a partial second warp, a warp of dead rays, a warp in which
+    one ray defers leaf after leaf while 31 miss, and incoherent rays: every
+    kind and mode bit-equal to the plain version."""
+    kind, packet, stream, two_level = route
+    *args, cbb, crange = cached_case(kind, cuda_device)
+    rays = shaped_rays(shape, args, cuda_device)
+    call = dict(kind=kind, packet=packet, two_level=two_level, cbb=cbb, crange=crange)
+    out = bt.bvh_traverse(*rays, *args[3:], TMIN, TMAX, stream=stream, **call)
+    stats = {}
+    ref = bt.bvh_traverse_plain(*rays, *args[3:], TMIN, TMAX, stats=stats, **call)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert bool((out[0][rays[2] <= 0] == 1e30).all())
+    if shape == "one-fills":  # only the eight long rays can hit
+        assert stats["sweeps"] >= 1 and int((out[0] < 1e30).sum()) <= 8
+    if shape == "shuffled":
+        assert int((out[0] < 1e30).sum()) > 100
 
 
 @pytest.mark.cuda

@@ -185,7 +185,8 @@ def _mesh_scene(ir, new_scene, build_camera, cfg, **cam_kw):
           light=True)
     cam = build_camera((0, 0, 1), (0, 0, -3), fov=50, width=cfg.width, height=cfg.height,
                        **cam_kw)
-    return b.compile(), cam
+    on = {k: v for k, v in cam_kw.items() if k == "device"}  # the port's compile takes it too
+    return b.compile(**on), cam
 
 
 MESH = dict(width=32, height=16, samples=4, max_depth=3, mesh_pallas="force")

@@ -131,7 +131,7 @@ def _compiled_pair(source):
     for (jobj, jlight), (tobj, tlight) in zip(_mixed_scene(jir), _mixed_scene(tir)):
         jb.add(jobj, light=jlight)
         tb.add(tobj, light=tlight)
-    return jb.compile(), tb.compile()
+    return jb.compile(), tb.compile(device="cpu")
 
 
 @pytest.mark.parametrize("source", ["example.sdl", "builder"])
@@ -157,7 +157,7 @@ _UNIT_SPHERE = tir.Sphere((0.0, 0.0, 0.0), 1.0, None)
 def test_unported_features_raise_with_their_roadmap_item(obj):
     b = TBuilder().add(obj)
     with pytest.raises(NotImplementedError, match="ROADMAP M"):
-        b.compile()
+        b.compile(device="cpu")
 
 
 @pytest.mark.parametrize("obj", [
@@ -168,7 +168,7 @@ def test_unported_features_raise_with_their_roadmap_item(obj):
 ], ids=["rect", "quadric", "moving-sphere", "perlin"])
 def test_ported_primitives_compile_to_their_groups(obj):
     """What compile refused until the dense-primitive modules were ported."""
-    scene = TBuilder().add(obj).compile()
+    scene = TBuilder().add(obj).compile(device="cpu")
     a = scene.arrays
     group = {tir.Rect: a.rects, tir.Quadric: a.quadrics, tir.Sphere: a.spheres}[type(obj)]
     assert group is not None and group.mat_id.shape[0] == 1
@@ -221,3 +221,30 @@ def test_plain_sphere_sweep_is_reached_only_from_cpu_tensors():
     port_calls = [c for c in calls if c[0] != "chip_smoke.py"]
     assert len(port_calls) == 1 and port_calls[0][0] == ops, calls
     assert not [h for h in handlers if h[0] == ops], handlers
+
+
+def _default_entry_points():
+    from raysnail_tpu_torch.camera import build_camera
+    from raysnail_tpu_torch.scenes import book1, cornell
+    from raysnail_tpu_torch.utils import golden
+    sphere = tir.Sphere((0.0, 0.0, 0.0), 1.0, tir.Lambertian(tir.Constant((0.5, 0.5, 0.5))))
+    return {
+        "compile": lambda: TBuilder().add(sphere).compile().device,
+        "build_camera": lambda: build_camera((0, 0, 1), (0, 0, 0)).aperture.device,
+        "cornell_camera": lambda: cornell.cornell_camera(8, 8).aperture.device,
+        "balls_camera": lambda: book1.balls_camera(8, 8).aperture.device,
+        "render_anchor": lambda: golden.render_anchor("example.sdl") is not None and "cuda",
+    }
+
+
+@pytest.mark.parametrize("name", ["compile", "build_camera", "cornell_camera", "balls_camera",
+                                  "render_anchor"])
+def test_entry_points_default_to_the_card_and_raise_without_one(name):
+    """The library's constructors run on the card unless the caller asks for
+    the CPU; without a card they raise, they do not fall back."""
+    call = _default_entry_points()[name]
+    if torch.cuda.is_available():
+        assert "cuda" in str(call())
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
