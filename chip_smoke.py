@@ -10,7 +10,8 @@ and exits non-zero if any fails:
   2. build    build every kernel from csrc/ with nvcc (sphere_min_t.cu,
               bvh_traverse.cu, bvh_packet.cu, bvh_probes.cu), and the host
               BVH builder with g++, all started together; the seconds, and
-              each kernel's registers and spills (-Xptxas -v)
+              each kernel's registers and spills (-Xptxas -v); the sphere
+              kernel's launch shape, occupancy and waves at 400,000 rays
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the render paths' shapes and at stress shapes; CUDA-event
               times. The packet kernel: tri, tri_mxu, box and sphere, bit for
@@ -20,8 +21,12 @@ and exits non-zero if any fails:
               MXU_EDGE_SHARE of the rays that both hit. Both traversal
               kernels again on mesh-200k's bounce rays (cosine directions from
               the primary rays' hit points, made from a seeded generator):
-              held against the plain version and timed. sphere_min_t's moving
-              form on the moving book 1 frame's primary rays, bit for bit.
+              held against the plain version and timed. sphere_min_t on
+              example.sdl's primary rays (a), random spheres (b), duplicated
+              spheres (c), the static book 1 frame's primary rays, and in its
+              moving form on the moving book 1 frame's primary rays (d) and
+              on their bounce rays (e): bit for bit, with the pairs that
+              take the root.
               Every traversal probe (ray I/O, walk, sweep, walk latency, the
               V0-V8 bisect) against its plain version, on the probes' own
               case knot-9600 and on mesh-200k: integers and min-t bit for
@@ -53,21 +58,28 @@ and exits non-zero if any fails:
               frame; a passes=2 render of example.sdl at 800x500@16spp. Each
               run reads the kernel launch counts it made.
   6. profile  (only with --profile) the mesh-800k frame and its primary
-              rays' call again on the one-order tree; torch.profiler: the
-              device time of one call of each traversal kind on the primary
-              and on the bounce rays; over one mesh-200k frame per
-              configuration and the mesh-800k frames, device time by kernel,
-              the traversal kernels' share and the device's busy share
+              rays' call again on the one-order tree; device time per call
+              (device_ms: calls queued behind a spin kernel, CUDA events) of
+              sphere_min_t on (a), static book 1, (d) and (e); K1's static
+              form against K4 (per ray, packet) on random sphere groups of
+              CROSSOVER_S spheres; each traversal kind on the primary and on
+              the bounce rays; torch.profiler over the moving book 1 frame,
+              one mesh-200k frame per configuration and the mesh-800k
+              frames: device time by kernel, the named kernels'
+              share and the device's busy share
 
 The last two lines are the kernels' JSON record (with each kernel's bound:
 the least time the card could take for the bytes and the FP32 operations
-that this run's rays needed) and {"ok": true, "device": {...}}. Without CUDA
-it exits non-zero before printing any result.
+that this run's rays needed; for sphere_min_t also its issue floor, the
+same operations issued one a lane a clock, as the -fmad=false build issues
+them) and {"ok": true, "device": {...}}. Without CUDA it exits non-zero
+before printing any result.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import statistics
@@ -102,6 +114,15 @@ HBM_BYTES_PER_S, FP32_FLOPS = 3.35e12, 67e12
 # from the kernels' sources (compares included)
 PAIR_FLOPS = {"tri": 55, "tri_mxu": 88, "box": 32, "sphere": 27}
 NODE_FLOPS = 22
+# sphere_min_t's FP32 operations: of every (ray, sphere) pair up to its ok
+# test (delta > 0), of the moving center, and of the root where ok holds
+# (sqrt, two roots, four range tests, the select and the compare with the
+# best); the kernel takes the root only there
+SMT_PAIR_OPS, SMT_MOVE_OPS, SMT_ROOT_OPS = 17, 6, 10
+# operations a second when each issues on its own, one a lane a clock: the
+# kernels are built with -fmad=false, and FP32_FLOPS counts an FMA as two
+FP32_NO_FMA = FP32_FLOPS / 2
+CROSSOVER_S = (64, 256, 1024, 2048, 4096, 8192)  # static sphere counts, K1 against K4
 
 
 def bound(n_bytes: float, n_flops: float) -> dict:
@@ -190,21 +211,69 @@ def check_sphere_kernel(args, t_min, t_max, label: str, time_it: bool, motion=No
     err = float((t_k - t_p).abs().max())
     same_idx = bool(torch.equal(i_k, i_p))
     n_hit = int((t_p < BIG).sum())
-    out = {"max_abs_err": err, "idx_equal": same_idx, "hits": n_hit}
+    n, s = args[0][0].shape[0], args[3].shape[0]
+    moving = bool(motion)
+    stats = root_stats(args, motion)
+    ops = (stats["pairs"] * (SMT_PAIR_OPS + SMT_MOVE_OPS * moving)
+           + stats["roots"] * SMT_ROOT_OPS)
+    out = {"max_abs_err": err, "idx_equal": same_idx, "hits": n_hit, **stats,
+           **bound(n * (8 + moving) * 4 + s * (5 + 3 * moving) * 4, ops),
+           "issue_floor_ms": ops / FP32_NO_FMA * 1e3}
     if time_it:
         out["ms"] = time_ms(lambda: sphere_min_t(*args, t_min, t_max, **motion))
         out["plain_ms"] = time_ms(lambda: sphere_min_t_plain(*args, t_min, t_max, **motion))
     # comparison launches are not the main path's
     sphere_min_t.launches, sphere_min_t.moving_launches = before
-    n, s = args[0][0].shape[0], args[3].shape[0]
     phase("kernels", f"sphere_min_t {label}: N={n} S={s} hits={n_hit} "
-          f"max|dt|={err!r} idx_equal={same_idx}"
-          + (f" kernel {out['ms']!r} ms, plain {out['plain_ms']!r} ms (median of "
+          f"max|dt|={err!r} idx_equal={same_idx}; pairs {stats['pairs']}, "
+          f"{stats['roots']} with delta > 0 (the root); bound {out['bound_ms']!r} ms by "
+          f"{out['bound_by']}, issue floor without FMA {out['issue_floor_ms']!r} ms"
+          + (f"; kernel {out['ms']!r} ms, plain {out['plain_ms']!r} ms (median of "
              f"{TIMING_RUNS})" if time_it else ""))
     if not same_idx or err != 0.0:
         raise AssertionError(f"sphere_min_t {label}: kernel disagrees with the plain "
                              f"version (max|dt|={err}, idx_equal={same_idx})")
     return out, (t_k, i_k)
+
+
+def root_stats(args, motion) -> dict:
+    """What the sphere kernel's inputs need, from the plain version's
+    arithmetic up to delta: the (ray, sphere) pairs, and the pairs with
+    delta > 0, the only ones that take the root."""
+    (ox, oy, oz), (dx, dy, dz), (cx, cy, cz), r2, active = args
+    n, s = ox.shape[0], r2.shape[0]
+    r2s = torch.where(active, r2, torch.full_like(r2, -float("inf")))
+    roots = 0
+    step = 32768
+    for lo in range(0, n, step):
+        sl = slice(lo, lo + step)
+        ls = []
+        for i, (o, c) in enumerate(zip((ox, oy, oz), (cx, cy, cz))):
+            if motion:
+                c = c + motion["speed_xyz"][i] * motion["time"][sl, None]
+            ls.append(o[sl, None] - c)
+        half_b = dx[sl, None] * ls[0] + dy[sl, None] * ls[1] + dz[sl, None] * ls[2]
+        ok = half_b * half_b - (ls[0] * ls[0] + ls[1] * ls[1] + ls[2] * ls[2] - r2s) > 0.0
+        roots += int(ok.sum())
+    return {"pairs": n * s, "roots": roots}
+
+
+def moving_bounce_rays(args, motion, t, idx, gen):
+    """Case (e): from each primary hit of case (d) a cosine-weighted
+    direction about the moved sphere's outward normal, from a seeded
+    generator, with the ray's shutter time kept; the rays that missed are
+    left out. -> (args, motion) of the sphere kernel."""
+    o, d, c, r2, active = args
+    hit = t < BIG
+    i = idx.long()[hit]
+    tm = motion["time"][hit].contiguous()
+    p = torch.stack(o, 1)[hit] + torch.stack(d, 1)[hit] * t[hit, None]
+    center = torch.stack(c, 1)[i] + torch.stack(motion["speed_xyz"], 1)[i] * tm[:, None]
+    normal = (p - center) / r2[i].sqrt()[:, None]
+    u = torch.randn(p.shape[0], 3, generator=gen, device=p.device)
+    dirs = normal + u / u.norm(dim=1, keepdim=True)
+    dirs = dirs / dirs.norm(dim=1, keepdim=True).clamp_min(1e-6)
+    return (cols(p), cols(dirs), c, r2, active), {"speed_xyz": motion["speed_xyz"], "time": tm}
 
 
 def check_bvh_kernel(kind, args, t_min, t_max, label: str, time_it: bool):
@@ -470,6 +539,15 @@ def run(device: torch.device, card: str, profile: bool) -> list:
         phase("build", f"{name} -> {os.path.relpath(lib, ROOT)}")
     phase("build", f"all built in {time.time() - t0:.2f} s (nvcc {' '.join(_nvcc.NVCC_FLAGS)}; "
           f"g++ {' '.join(native.GXX_FLAGS)})")
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    for moving in (False, True):
+        sh = smt.launch_shape(moving)
+        blocks = -(-WIDTH * HEIGHT // (sh["threads"] * sh["rays"]))
+        phase("build", f"sphere_min_t, {'moving' if moving else 'static'} form: "
+              f"{sh['threads']} threads x {sh['rays']} rays a block, {sh['tile']}-sphere tiles; "
+              f"{sh['blocks_per_sm']} blocks an SM at once ({sh['blocks_per_sm'] * sh['threads'] // 32}"
+              f" of its 64 warps); {WIDTH * HEIGHT} rays: {blocks} blocks, "
+              f"{blocks / (sh['blocks_per_sm'] * n_sm)!r} waves on {n_sm} SMs")
 
     counters = Counters()
     gen = torch.Generator(device=device).manual_seed(7)
@@ -489,6 +567,16 @@ def run(device: torch.device, card: str, profile: bool) -> list:
                                    "(a) example.sdl primary rays", time_it=True)
     res_b, _ = check_sphere_kernel(sphere_case(gen, 100_003, 478, device), cfg.t_min, BIG,
                                    "(b) 478 random spheres, ragged rays", time_it=True)
+    # the static book 1 frame's shape: its 481 balls x one frame of primary rays
+    vcfg = RenderConfig(width=WIDTH, height=HEIGHT, samples=SMALL_SPP)
+    sscene = book1.balls_scene(7).compile(vcfg.dtype, device)
+    ssph = sscene.arrays.spheres
+    sray = primary_rays(book1.balls_camera(WIDTH, HEIGHT, device=device), WIDTH, HEIGHT,
+                        vcfg.sqrt_spp, device)
+    args_s = (tuple(sray.origin), tuple(sray.direction), tuple(ssph.center),
+              (ssph.radius * ssph.radius).contiguous(), ssph.active)
+    res_s, _ = check_sphere_kernel(args_s, vcfg.t_min, vcfg.t_max,
+                                   "static book 1 primary rays", time_it=True)
     args_c = sphere_case(gen, 65_537, 256, device, duplicate=True)
     res_c, (t_c, i_c) = check_sphere_kernel(args_c, cfg.t_min, BIG, "(c) duplicated spheres",
                                             time_it=False)
@@ -497,10 +585,9 @@ def run(device: torch.device, card: str, profile: bool) -> list:
         raise AssertionError("sphere_min_t (c): a tie did not go to the first index")
     phase("kernels", f"sphere_min_t (c): every tie went to the first copy "
           f"({int(hit_c.sum())} hits)")
-    smt_err = max(r["max_abs_err"] for r in (res_a, res_b, res_c))
+    smt_err = max(r["max_abs_err"] for r in (res_a, res_b, res_c, res_s))
     # (d) the moving form at the moving book 1 frame's shape: its 478 balls
     # with their speeds x one frame of primary rays with their shutter times
-    vcfg = RenderConfig(width=WIDTH, height=HEIGHT, samples=SMALL_SPP)
     vscene = book1.balls_scene(7, need_speed=True).compile(vcfg.dtype, device)
     vcam = book1.balls_camera(WIDTH, HEIGHT, need_shutter=True, device=device)
     vsph = vscene.arrays.spheres
@@ -508,9 +595,14 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     args_d = (tuple(vray.origin), tuple(vray.direction), tuple(vsph.center),
               (vsph.radius * vsph.radius).contiguous(), vsph.active)
     motion = {"speed_xyz": tuple(vsph.speed), "time": vray.time.contiguous()}
-    res_d, (t_d, _) = check_sphere_kernel(args_d, vcfg.t_min, vcfg.t_max,
-                                          "(d) moving book 1 primary rays, moving form",
-                                          time_it=True, motion=motion)
+    res_d, (t_d, i_d) = check_sphere_kernel(args_d, vcfg.t_min, vcfg.t_max,
+                                            "(d) moving book 1 primary rays, moving form",
+                                            time_it=True, motion=motion)
+    # (e) the rays of a second shade iteration of that frame
+    args_e, motion_e = moving_bounce_rays(args_d, motion, t_d, i_d, gen)
+    res_e, _ = check_sphere_kernel(args_e, vcfg.t_min, vcfg.t_max,
+                                   "(e) moving book 1 bounce rays, moving form",
+                                   time_it=True, motion=motion_e)
     t_still = smt.sphere_min_t(*args_d, vcfg.t_min, vcfg.t_max)[0]
     moved = int((t_still != t_d).sum())
     phase("kernels", f"sphere_min_t (d): the motion changes t on {moved} of {t_d.numel()} rays "
@@ -892,37 +984,52 @@ def run(device: torch.device, card: str, profile: bool) -> list:
         raise AssertionError("mesh+arealight did not go through the traversal kernel")
 
     if profile:
+        smt_cases = {"(a) example.sdl primary rays": (args_a, {}),
+                     "static book 1 primary rays": (args_s, {}),
+                     "(d) moving book 1 primary rays": (args_d, motion),
+                     "(e) moving book 1 bounce rays": (args_e, motion_e)}
+        for label, (args, mo) in smt_cases.items():
+            ms = device_ms(lambda: smt.sphere_min_t(*args, vcfg.t_min, vcfg.t_max, **mo))
+            phase("profile", f"sphere_min_t {label}: {ms!r} ms device time per call "
+                  f"({TIMING_RUNS} back to back)")
+        wall = frame(vscene, vcam, vcfg, 0, counters)[1]
+        profile_frame(vscene, vcam, vcfg, "book 1, moving balls", wall, seed=0,
+                      kernel=("sphere_min_t_kernel<true>",), kernel_name="sphere_min_t (moving)")
+        sphere_crossover(gen, device)
         profile_kernels(cases, mcfg.t_min, mcfg.t_max, "primary rays")
         profile_kernels(bounce_cases, mcfg.t_min, mcfg.t_max, "bounce rays")
         for label, (sc, run_cfg, env, _) in mesh_cfgs.items():
             with golden.traversal_env(**env):
-                profile_mesh_frame(sc, mcam, run_cfg, f"mesh-200k, {label}",
-                                   mesh_runs[label][0])
+                profile_frame(sc, mcam, run_cfg, f"mesh-200k, {label}", mesh_runs[label][0])
         for label, (sc8, sec8, _) in runs8.items():
-            profile_mesh_frame(sc8, bcam8, mcfg, f"mesh-800k, {label}", sec8)
+            profile_frame(sc8, bcam8, mcfg, f"mesh-800k, {label}", sec8)
         ucfg = mcfg.replace(mesh_bin="never")
         _, useconds, _, _, _ = frame(bscene8, bcam8, ucfg, MESH_SEED, counters)
-        profile_mesh_frame(bscene8, bcam8, ucfg, "mesh-800k, 8 octant orders, unbinned",
-                           useconds)
+        profile_frame(bscene8, bcam8, ucfg, "mesh-800k, 8 octant orders, unbinned", useconds)
 
     # the kernels' records: `launches` from a main-path run (a frame where one
     # runs the kernel or mode, else its forced anchor render)
     src = "raysnail_tpu_torch/csrc/"
     tpu = "raysnail_tpu/ops/bvh_pallas.py:"
-    n_a, s_a = args_a[0][0].shape[0], args_a[3].shape[0]
-    n_d, s_d = args_d[0][0].shape[0], args_d[3].shape[0]
+    # case (a) for the static form and (d) for the moving one, with (b), the
+    # static book 1 rays and the bounce case (e) beside them; each with its
+    # bound and its issue floor without FMA
+    smt_keys = ("bound_ms", "bound_by", "issue_floor_ms")
     records = [
         {"name": "sphere_min_t", "route": "cuda", "source": src + "sphere_min_t.cu",
          "replaces": "raysnail_tpu/ops/sphere_pallas.py:30",
          "launches": smt_launches, "max_abs_err": smt_err,
-         "ms": res_a["ms"], "plain_ms": res_a["plain_ms"],
-         **bound(n_a * 8 * 4 + s_a * 5 * 4, n_a * s_a * PAIR_FLOPS["sphere"])},
-        # 6 more operations per pair move the center; a time per ray, a speed per sphere
+         "ms": res_a["ms"], "plain_ms": res_a["plain_ms"], **{k: res_a[k] for k in smt_keys},
+         "b_ms": res_b["ms"], "b_bound_ms": res_b["bound_ms"],
+         "book1_ms": res_s["ms"], "book1_bound_ms": res_s["bound_ms"],
+         "book1_issue_floor_ms": res_s["issue_floor_ms"]},
         {"name": "sphere_min_t/moving", "route": "cuda", "source": src + "sphere_min_t.cu",
          "replaces": "raysnail_tpu/geometry/spheres.py:38",
-         "launches": moving_launches, "max_abs_err": res_d["max_abs_err"],
-         "ms": res_d["ms"], "plain_ms": res_d["plain_ms"],
-         **bound(n_d * 9 * 4 + s_d * 8 * 4, n_d * s_d * (PAIR_FLOPS["sphere"] + 6))}]
+         "launches": moving_launches, "max_abs_err": max(res_d["max_abs_err"],
+                                                         res_e["max_abs_err"]),
+         "ms": res_d["ms"], "plain_ms": res_d["plain_ms"], **{k: res_d[k] for k in smt_keys},
+         "bounce_ms": res_e["ms"], "bounce_bound_ms": res_e["bound_ms"],
+         "bounce_issue_floor_ms": res_e["issue_floor_ms"]}]
     per_ray = {"tri": (res_tri, tri_launches),
                "box": (res_box, anchor_launches["boxfield-kernel"]["bvh_traverse/box"]),
                "sphere": (res_sph, anchor_launches["book1-spherebvh"]["bvh_traverse/sphere"])}
@@ -989,45 +1096,117 @@ def _device_events(prof) -> list:
             if e.device_type == DeviceType.CUDA and _dev_us(e) > 0]
 
 
-def profile_kernels(cases: dict, t_min, t_max, label: str, repeats: int = 5):
-    """torch.profiler device time per call of each traversal kind through the
+def profile_kernels(cases: dict, t_min, t_max, label: str):
+    """Device ms per call (device_ms) of each traversal kind through the
     per-ray kernel (tri, box, sphere) and the packet kernel (all four, modes
-    off), all under one profiler with `repeats` calls each, on the inputs of
-    phase 3 (`label` names the rays)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    off), on the inputs of phase 3 (`label` names the rays)."""
     from raysnail_tpu_torch.ops import bvh_traverse as bt
 
-    routes = [(kind, packet) for kind in cases for packet in (False, True)
-              if packet or kind in bt._PER_RAY_KINDS]
-    call = lambda kind, packet: bt.bvh_traverse(*cases[kind], t_min, t_max, kind=kind,
-                                                packet=packet, stream=False, two_level=False)
-    before = dict(bt.bvh_traverse.launches)
-    for route in routes:
-        call(*route)  # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for route in routes:
-            for _ in range(repeats):
-                call(*route)
+    for kind in cases:
+        for packet in (False, True):
+            if not packet and kind not in bt._PER_RAY_KINDS:
+                continue
+            ms = device_ms(lambda: bt.bvh_traverse(*cases[kind], t_min, t_max, kind=kind,
+                                                   packet=packet, stream=False,
+                                                   two_level=False))
+            phase("profile", f"{'packet' if packet else 'per-ray'} {kind}, {label}, "
+                  f"N={cases[kind][0][0].shape[0]}: {ms!r} ms device time per call "
+                  f"({TIMING_RUNS} back to back)")
+
+
+def _kernel_key(e) -> str:
+    return e.key.replace("(bool)1", "true").replace("(bool)0", "false")
+
+
+@contextlib.contextmanager
+def counts_kept():
+    """Every kernel's launch count is left as it was by the block: the
+    launches made to measure a kernel are not the main path's."""
+    from raysnail_tpu_torch.ops import bvh_traverse as bt
+    from raysnail_tpu_torch.ops import sphere_min_t as smt
+
+    saved = (smt.sphere_min_t.launches, smt.sphere_min_t.moving_launches,
+             dict(bt.bvh_traverse.launches))
+    try:
+        yield
+    finally:
+        (smt.sphere_min_t.launches, smt.sphere_min_t.moving_launches,
+         bt.bvh_traverse.launches) = saved
+
+
+SPIN_CYCLES = int(2e8)  # about 0.1 s at the H100's 1.98 GHz: longer than queuing the calls
+
+
+def device_ms(fn, runs: int = TIMING_RUNS) -> float:
+    """Device milliseconds per call of `fn`: after a warm-up, `runs` calls
+    queued behind a spin kernel (torch.cuda._sleep), so that the card runs
+    them back to back, timed between two CUDA events. Raises if queuing the
+    calls outlasted the spin, when host time would have entered."""
+    with counts_kept():
+        fn()
         torch.cuda.synchronize()
-    bt.bvh_traverse.launches = before  # profiling launches are not the main path's
-    events = _device_events(prof)
-    for kind, packet in routes:
-        tag = (f"bvh_packet_kernel<{bt._KIND_ID[kind]}, false>" if packet
-               else f"bvh_traverse_kernel<{bt._KIND_ID[kind]}>")
-        mine = [e for e in events if tag in e.key.replace("(bool)0", "false")]
-        calls = sum(e.count for e in mine)
-        per_call = sum(_dev_us(e) for e in mine) / 1e3 / max(calls, 1)
-        phase("profile", f"{'packet' if packet else 'per-ray'} {kind}, {label}, "
-              f"N={cases[kind][0][0].shape[0]}: {per_call!r} ms device time per call "
-              f"({calls} calls seen)")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        queued = time.perf_counter() - t0
+        end.record()
+        end.synchronize()
+        spin = torch.cuda.Event(enable_timing=True)
+        spun = torch.cuda.Event(enable_timing=True)
+        spin.record()
+        torch.cuda._sleep(SPIN_CYCLES)
+        spun.record()
+        spun.synchronize()
+    if queued * 1e3 >= spin.elapsed_time(spun):
+        raise AssertionError(f"device_ms: queuing {runs} calls took {queued:.4f} s, longer "
+                             f"than the spin kernel")
+    return start.elapsed_time(end) / runs
 
 
-def profile_mesh_frame(scene, camera, cfg, label: str, wall_s: float):
-    """torch.profiler over one frame: device time by kernel, the traversal
-    kernels' share and time per launch, and the busy share against the
-    unprofiled frame's wall time `wall_s`."""
+def sphere_crossover(gen, device):
+    """Static sphere groups of CROSSOVER_S random spheres (centers in
+    [-20, 20]^3, radii 0.2-0.6) against one set of WIDTH x HEIGHT random
+    uncapped rays: device ms per call (device_ms) of the dense sweep (K1) and
+    of the BVH traversal's kind "sphere" (K4) per ray and per packet."""
+    from raysnail_tpu_torch import ir
+    from raysnail_tpu_torch.ops import bvh_traverse as bt
+    from raysnail_tpu_torch.ops import sphere_min_t as smt
+    from raysnail_tpu_torch.scene import SceneBuilder
+
+    n = WIDTH * HEIGHT
+    o, d, _ = random_rays(gen, n, (-25.0,) * 3, (25.0,) * 3, device)
+    cap = torch.full((n,), BIG, device=device)
+    rng = np.random.default_rng(13)
+    for s in CROSSOVER_S:
+        b = SceneBuilder()
+        for c in rng.uniform(-20, 20, (s, 3)):
+            b.add(ir.Sphere(tuple(c), float(rng.uniform(0.2, 0.6)),
+                            ir.Lambertian(ir.Constant((0.5, 0.5, 0.5)))))
+        g = b.compile(device=device).arrays.spheres
+        dense = (cols(o), cols(d), tuple(g.center), (g.radius * g.radius).contiguous(), g.active)
+        bvh = (cols(o), cols(d), cap, g.pk_bb, g.pk_links, g.pk_sph)
+        k1 = lambda: smt.sphere_min_t(*dense, 1e-3, BIG)
+        k4 = lambda packet: bt.bvh_traverse(*bvh, 1e-3, BIG, kind="sphere", packet=packet,
+                                            stream=False, two_level=False)
+        with counts_kept():
+            t1, t4 = k1()[0], k4(False)[0]
+        ms = {"K1": device_ms(k1), "K4 per ray": device_ms(lambda: k4(False)),
+              "K4 packet": device_ms(lambda: k4(True))}
+        phase("profile", f"crossover, S={s} static spheres x {n} rays: device ms per call "
+              f"{ms}; hits K1 {int((t1 < BIG).sum())}, K4 {int((t4 < BIG).sum())}, "
+              f"t differs on {int((t1 != t4).sum())} rays")
+
+
+def profile_frame(scene, camera, cfg, label: str, wall_s: float, seed: int = MESH_SEED,
+                  kernel=("bvh_traverse_kernel", "bvh_packet_kernel"),
+                  kernel_name: str = "traversal kernel"):
+    """torch.profiler over one frame: device time by kernel, the share and
+    time per launch of the kernels whose names hold one of `kernel`, and the
+    busy share against the unprofiled frame's wall time `wall_s`."""
     from torch.profiler import ProfilerActivity, profile
 
     from raysnail_tpu_torch.render import make_frame_step
@@ -1036,7 +1215,7 @@ def profile_mesh_frame(scene, camera, cfg, label: str, wall_s: float):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, iterations = step(scene.arrays, camera, MESH_SEED)
+        _, iterations = step(scene.arrays, camera, seed)
         torch.cuda.synchronize()
     prof_wall = time.perf_counter() - t0
 
@@ -1049,11 +1228,11 @@ def profile_mesh_frame(scene, camera, cfg, label: str, wall_s: float):
     for e in sorted(events, key=_dev_us, reverse=True)[:8]:
         phase("profile", f"  {_dev_us(e) / 1e3:10.3f} ms  {100 * _dev_us(e) / total:6.2f}%  "
               f"x{e.count:<7d} {e.key[:90]}")
-    bvh = [e for e in events if "bvh_traverse_kernel" in e.key or "bvh_packet_kernel" in e.key]
-    bvh_us, bvh_n = sum(_dev_us(e) for e in bvh), sum(e.count for e in bvh)
-    phase("profile", f"{label}: traversal kernel {bvh_us / 1e3:.3f} ms "
-          f"({100 * bvh_us / total:.2f}% of device time) in {bvh_n} launches, "
-          f"{bvh_us / 1e3 / max(bvh_n, 1)!r} ms per launch; device busy "
+    mine = [e for e in events if any(t in _kernel_key(e) for t in kernel)]
+    k_us, k_n = sum(_dev_us(e) for e in mine), sum(e.count for e in mine)
+    phase("profile", f"{label}: {kernel_name} {k_us / 1e3:.3f} ms "
+          f"({100 * k_us / total:.2f}% of device time) in {k_n} launches, "
+          f"{k_us / 1e3 / max(k_n, 1)!r} ms per launch; device busy "
           f"{100 * total / 1e6 / wall_s:.2f}% of the unprofiled frame's {wall_s:.3f} s wall")
 
 

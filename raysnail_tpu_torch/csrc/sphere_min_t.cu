@@ -10,25 +10,37 @@
 // 128-lane chunk and a strict `<` across chunks; a sequential loop over the
 // spheres with a strict `<` gives the same winner.
 //
-// Design. One thread owns one ray and keeps its six ray components and its
-// running (t, idx) in registers. The block stages the sphere parameters
-// (cx, cy, cz, r2, active) through shared memory, one tile of blockDim.x
-// spheres at a time, so a block reads each sphere once from device memory
-// however many rays it holds. The kernel masks the ragged ray edge itself:
-// no padding of rays or spheres to the TPU's (512, 128) tiling.
-//
-// The moving form (motion blur, sphere.rs:50-52): the sphere tile also
-// carries its speed and each thread its ray's time, and the center of a pair
-// is c + speed * time, as geometry/spheres.py pair_t of the JAX package
-// moves it. In the JAX package a moving group never takes the TPU kernel
-// (XLA fuses its dense sweep); here the dense sweep is this kernel on the
-// card. Static groups keep their own instantiation, with no speed loads.
+// The moving form (motion blur, sphere.rs:50-52): each sphere also carries
+// its speed and each ray its time, and the center of a pair is
+// c + speed * time, as geometry/spheres.py pair_t of the JAX package moves
+// it. In the JAX package a moving group never takes the TPU kernel (XLA
+// fuses its dense sweep); here the dense sweep is this kernel on the card.
 //
 // What bounds it on the card. With few spheres (example.sdl: S = 4) it is
-// the ray I/O: 24 bytes in and 8 bytes out per ray, at device-memory
-// bandwidth. With many (book1: S = 478) it is about 20 float operations per
-// (ray, sphere) pair, in registers, with the sphere tile read from shared
-// memory as a broadcast (every thread of a warp reads the same word).
+// the ray I/O: 24 bytes in and 8 bytes out per ray. With many (book 1:
+// S = 481) it is the issue of the per-pair arithmetic: built with
+// -fmad=false, every product and sum issues on its own (16 operations a
+// static pair up to delta, 22 a moving one), so the floor is the
+// operations at one per lane per clock, twice the FMA-counted FP32 peak.
+//
+// Design, against that floor:
+// - kRays rays per thread, kThreads threads a block: one sphere read serves
+//   kRays pairs, and the rays' chains are independent work for the
+//   scheduler. Ray r of a thread is ray tile + r * kThreads + threadIdx.x,
+//   so every load and store of the ray arrays is coalesced.
+// - The block stages kTile spheres at a time into shared memory, packed as
+//   16-byte records (cx, cy, cz, r2) and, moving, (sx, sy, sz, 0): the inner
+//   loop reads a sphere with one or two vector broadcasts. An inactive
+//   sphere is staged with r2 = -inf, so its c is +inf (or NaN) and its
+//   delta never exceeds 0: `delta > 0` alone is the pair's ok.
+// - The root only where a pair can hit. A pair with delta <= 0 gives BIG,
+//   which never replaces a running best (initialised to BIG, strict <). So
+//   the correctly rounded sqrtf, the two roots and their range tests run
+//   only when some ray of the thread has delta > 0 (one branch a sphere),
+//   and then only for the rays that have it.
+// - The grid is one block per kThreads * kRays rays: at the main path's
+//   400,000 rays that is 782 blocks, inside one wave of the blocks that
+//   132 SMs hold at once (`sphere_min_t_shape` reports the count).
 //
 // Built with -fmad=false: each product and sum rounds as the plain PyTorch
 // version's separate elementwise kernels round it, so t and idx agree bit
@@ -38,15 +50,19 @@
 // allocates nothing, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+constexpr int kRays = 4;
+constexpr int kTile = 256;
 constexpr float kBig = 1e30f;
 
+// 8 blocks an SM at once: at most 64 registers a thread
 template <bool MOVING>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 8)
 sphere_min_t_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                     const float* __restrict__ oz, const float* __restrict__ dx,
                     const float* __restrict__ dy, const float* __restrict__ dz,
@@ -57,66 +73,80 @@ sphere_min_t_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                     const float* __restrict__ time, float t_min, float t_max,
                     float* __restrict__ t_out, int32_t* __restrict__ idx_out,
                     int n, int s) {
-  __shared__ float s_cx[kThreads];
-  __shared__ float s_cy[kThreads];
-  __shared__ float s_cz[kThreads];
-  __shared__ float s_r2[kThreads];
-  __shared__ uint8_t s_act[kThreads];
-  __shared__ float s_sx[MOVING ? kThreads : 1];
-  __shared__ float s_sy[MOVING ? kThreads : 1];
-  __shared__ float s_sz[MOVING ? kThreads : 1];
+  __shared__ float4 s_sph[kTile];                  // cx, cy, cz, r2 (-inf: inactive)
+  __shared__ float4 s_spd[MOVING ? kTile : 1];     // sx, sy, sz, 0
 
-  const int ray = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = ray < n;
-  float o_x = 0.f, o_y = 0.f, o_z = 0.f, d_x = 0.f, d_y = 0.f, d_z = 0.f;
-  if (live) {
-    o_x = ox[ray]; o_y = oy[ray]; o_z = oz[ray];
-    d_x = dx[ray]; d_y = dy[ray]; d_z = dz[ray];
+  const int first = blockIdx.x * (kThreads * kRays) + threadIdx.x;
+  float o_x[kRays], o_y[kRays], o_z[kRays], d_x[kRays], d_y[kRays], d_z[kRays];
+  float tm[kRays], best_t[kRays];
+  int32_t best_i[kRays];
+#pragma unroll
+  for (int r = 0; r < kRays; ++r) {
+    const int ray = first + r * kThreads;
+    const bool live = ray < n;
+    o_x[r] = live ? ox[ray] : 0.f;
+    o_y[r] = live ? oy[ray] : 0.f;
+    o_z[r] = live ? oz[ray] : 0.f;
+    d_x[r] = live ? dx[ray] : 0.f;
+    d_y[r] = live ? dy[ray] : 0.f;
+    d_z[r] = live ? dz[ray] : 0.f;
+    tm[r] = (MOVING && live) ? time[ray] : 0.f;
+    best_t[r] = kBig;
+    best_i[r] = 0;
   }
-  const float tm = (MOVING && live) ? time[ray] : 0.f;
-  float best_t = kBig;
-  int32_t best_i = 0;
 
-  for (int base = 0; base < s; base += kThreads) {
-    const int j = base + threadIdx.x;
+  for (int base = 0; base < s; base += kTile) {
+    const int tile = min(kTile, s - base);
     __syncthreads();  // the previous tile is no longer read
-    if (j < s) {
-      s_cx[threadIdx.x] = cx[j];
-      s_cy[threadIdx.x] = cy[j];
-      s_cz[threadIdx.x] = cz[j];
-      s_r2[threadIdx.x] = r2[j];
-      s_act[threadIdx.x] = active[j];
-      if (MOVING) {
-        s_sx[threadIdx.x] = sx[j];
-        s_sy[threadIdx.x] = sy[j];
-        s_sz[threadIdx.x] = sz[j];
-      }
+    for (int j = threadIdx.x; j < tile; j += kThreads) {
+      const int k = base + j;
+      s_sph[j] = make_float4(cx[k], cy[k], cz[k], active[k] ? r2[k] : -INFINITY);
+      if (MOVING) s_spd[j] = make_float4(sx[k], sy[k], sz[k], 0.f);
     }
     __syncthreads();
-    const int tile = min(kThreads, s - base);
+#pragma unroll 2
     for (int k = 0; k < tile; ++k) {
-      const float lx = o_x - (MOVING ? s_cx[k] + s_sx[k] * tm : s_cx[k]);
-      const float ly = o_y - (MOVING ? s_cy[k] + s_sy[k] * tm : s_cy[k]);
-      const float lz = o_z - (MOVING ? s_cz[k] + s_sz[k] * tm : s_cz[k]);
-      const float half_b = (d_x * lx + d_y * ly) + d_z * lz;
-      const float c = ((lx * lx + ly * ly) + lz * lz) - s_r2[k];
-      const float delta = half_b * half_b - c;
-      const float sq = sqrtf(fmaxf(delta, 0.f));
-      const float t1 = -half_b - sq;
-      const float t2 = -half_b + sq;
-      const bool ok = (delta > 0.f) && (s_act[k] != 0);
-      const bool in1 = ok && (t_min < t1) && (t1 < t_max);
-      const bool in2 = ok && (t_min < t2) && (t2 < t_max);
-      const float t = in1 ? t1 : (in2 ? t2 : kBig);
-      if (t < best_t) {
-        best_t = t;
-        best_i = base + k;
+      const float4 sph = s_sph[k];
+      const float4 spd = MOVING ? s_spd[k] : make_float4(0.f, 0.f, 0.f, 0.f);
+      float half_b[kRays], delta[kRays];
+      bool any = false;
+#pragma unroll
+      for (int r = 0; r < kRays; ++r) {
+        // the plain version's order: the center moves first, then o - c
+        const float lx = o_x[r] - (MOVING ? sph.x + spd.x * tm[r] : sph.x);
+        const float ly = o_y[r] - (MOVING ? sph.y + spd.y * tm[r] : sph.y);
+        const float lz = o_z[r] - (MOVING ? sph.z + spd.z * tm[r] : sph.z);
+        half_b[r] = (d_x[r] * lx + d_y[r] * ly) + d_z[r] * lz;
+        const float c = ((lx * lx + ly * ly) + lz * lz) - sph.w;
+        delta[r] = half_b[r] * half_b[r] - c;
+        any |= delta[r] > 0.f;
+      }
+      if (any) {
+#pragma unroll
+        for (int r = 0; r < kRays; ++r) {
+          if (delta[r] > 0.f) {
+            const float sq = sqrtf(delta[r]);
+            const float t1 = -half_b[r] - sq;
+            const float t2 = -half_b[r] + sq;
+            const bool in1 = (t_min < t1) && (t1 < t_max);
+            const bool in2 = (t_min < t2) && (t2 < t_max);
+            const float t = in1 ? t1 : (in2 ? t2 : kBig);
+            if (t < best_t[r]) {
+              best_t[r] = t;
+              best_i[r] = base + k;
+            }
+          }
+        }
       }
     }
   }
-  if (live) {
-    t_out[ray] = best_t;
-    idx_out[ray] = best_i;
+#pragma unroll
+  for (int r = 0; r < kRays; ++r) {
+    const int ray = first + r * kThreads;
+    if (ray < n) {
+      t_out[ray] = best_t[r];
+      idx_out[ray] = best_i[r];
+    }
   }
 }
 
@@ -129,9 +159,10 @@ extern "C" int sphere_min_t_launch(const void* ox, const void* oy, const void* o
                                    const void* sy, const void* sz, const void* time,
                                    float t_min, float t_max, void* t_out, void* idx_out,
                                    int n, int s, void* stream) {
-  // sx, sy, sz (S,) and time (N,) select the moving form; all null: static
+  // time (N,) selects the moving form, with sx, sy, sz (S,), which are null
+  // only when S = 0 (an empty tensor's pointer); all four null: static
   if (n > 0) {
-    const int blocks = (n + kThreads - 1) / kThreads;
+    const int blocks = (n + kThreads * kRays - 1) / (kThreads * kRays);
     auto st = static_cast<cudaStream_t>(stream);
 #define ARGS                                                                   \
   static_cast<const float*>(ox), static_cast<const float*>(oy),               \
@@ -143,7 +174,7 @@ extern "C" int sphere_min_t_launch(const void* ox, const void* oy, const void* o
       static_cast<const float*>(sy), static_cast<const float*>(sz),           \
       static_cast<const float*>(time), t_min, t_max, static_cast<float*>(t_out), \
       static_cast<int32_t*>(idx_out), n, s
-    if (sx && sy && sz && time) {
+    if (time && (s == 0 || (sx && sy && sz))) {
       sphere_min_t_kernel<true><<<blocks, kThreads, 0, st>>>(ARGS);
     } else if (!sx && !sy && !sz && !time) {
       sphere_min_t_kernel<false><<<blocks, kThreads, 0, st>>>(ARGS);
@@ -153,4 +184,20 @@ extern "C" int sphere_min_t_launch(const void* ox, const void* oy, const void* o
 #undef ARGS
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch shape of one form, for a run's record: threads a block, rays a
+// thread, spheres a shared-memory tile, and the blocks that one SM of the
+// current device holds at once (the occupancy calculator's count).
+extern "C" int sphere_min_t_shape(int moving, int* threads, int* rays, int* tile,
+                                  int* blocks_per_sm) {
+  *threads = kThreads;
+  *rays = kRays;
+  *tile = kTile;
+  const cudaError_t err =
+      moving ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   blocks_per_sm, sphere_min_t_kernel<true>, kThreads, 0)
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   blocks_per_sm, sphere_min_t_kernel<false>, kThreads, 0);
+  return static_cast<int>(err);
 }

@@ -42,8 +42,21 @@ def _load():
         fn.argtypes = [ptr] * 15 + [ctypes.c_float, ctypes.c_float, ptr, ptr,
                                     ctypes.c_int, ctypes.c_int, ptr]
         fn.restype = ctypes.c_int
+        lib.sphere_min_t_shape.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
+        lib.sphere_min_t_shape.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def launch_shape(moving: bool) -> dict:
+    """The kernel's launch shape on the current CUDA device: threads a
+    block, rays a thread, spheres a shared-memory tile, and the blocks one
+    SM holds at once (the occupancy calculator's count)."""
+    out = [ctypes.c_int() for _ in range(4)]
+    err = _load().sphere_min_t_shape(int(moving), *(ctypes.byref(v) for v in out))
+    if err != 0:
+        raise RuntimeError(f"sphere_min_t_shape failed: cudaError {err}")
+    return dict(zip(("threads", "rays", "tile", "blocks_per_sm"), (v.value for v in out)))
 
 
 def sphere_min_t_plain(origin_xyz, dir_xyz, center_xyz, r2, active, t_min, t_max,

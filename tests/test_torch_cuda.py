@@ -77,6 +77,31 @@ def test_sphere_kernel_matches_plain(cuda_device, n, s, dup):
         assert not bool((idx[hit] % 2 == 1).any())  # ties go to the first copy
 
 
+def sphere_motion(seed, n, s, device, duplicate=False):
+    """Speeds in [-2, 2)^3 and shutter times in [0, 1); duplicate=True gives
+    the two copies of each sphere of sphere_case(duplicate=True) one speed."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    m = s // 2 if duplicate else s
+    speed = tuple((torch.rand(m, generator=gen, device=device) - 0.5) * 4.0 for _ in range(3))
+    if duplicate:
+        speed = tuple(a.repeat_interleave(2) for a in speed)
+    return {"speed_xyz": speed, "time": torch.rand(n, generator=gen, device=device)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [0, 1, 255, 256, 257])
+@pytest.mark.parametrize("n", [1, 31, 33, 257])
+@pytest.mark.parametrize("moving", [False, True], ids=["static", "moving"])
+def test_sphere_kernel_matches_plain_on_ragged_counts(cuda_device, moving, n, s):
+    """Ray and sphere counts off the kernel's ray tile, warp and sphere tile."""
+    args = sphere_case(n + s, n, s, cuda_device)
+    motion = sphere_motion(n + s, n, s, cuda_device) if moving else {}
+    t, idx = smt.sphere_min_t(*args, TMIN, TMAX, **motion)
+    pt, pidx = smt.sphere_min_t_plain(*args, TMIN, TMAX, **motion)
+    torch.cuda.synchronize()
+    assert torch.equal(t, pt) and torch.equal(idx, pidx)
+
+
 @pytest.mark.cuda
 def test_sphere_kernel_checks_its_inputs(cuda_device):
     o, d, c, r2, act = sphere_case(2, 1000, 8, cuda_device)
@@ -300,6 +325,18 @@ def test_packet_kernel_is_picked_when_a_mode_needs_it(cuda_device):
 
 
 # -- the sphere sweep's moving form -------------------------------------------------
+
+@pytest.mark.cuda
+def test_moving_sphere_kernel_ties_go_to_the_first_index(cuda_device):
+    args = sphere_case(4, 65_537, 256, cuda_device, duplicate=True)
+    motion = sphere_motion(6, 65_537, 256, cuda_device, duplicate=True)
+    t, idx = smt.sphere_min_t(*args, TMIN, TMAX, **motion)
+    pt, pidx = smt.sphere_min_t_plain(*args, TMIN, TMAX, **motion)
+    torch.cuda.synchronize()
+    assert torch.equal(t, pt) and torch.equal(idx, pidx)
+    hit = t < 1e30
+    assert int(hit.sum()) > 0 and not bool((idx[hit] % 2 == 1).any())
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,s", [(800 * 500, 478), (100_003, 7), (65_537, 600)],
