@@ -186,3 +186,43 @@ def intersect_kernel(group: BoxGroup, ray, t_min, t_max, active=None, t_cap=None
     return hitlib.finalize(d, torch.where(valid, t, torch.full_like(t, BIG)),
                            _axis_normal(axis, sign), u, v,
                            torch.where(valid, mat, torch.full_like(mat, -1)), valid)
+
+
+# -- CSG and media support (one box, scalar params broadcast over rays) -------
+
+def interval(p_min: Vec3, p_max: Vec3, ray, t_min, t_max, inv_rows=None, inv_off=None):
+    """(t1, t2, valid, axis, near_sel, d_obj, o_obj) of one box per ray
+    (box.rs:125-149): (t_near, t_far) when entering, (t_far, BIG) when the
+    ray starts inside; the object-space ray comes back for the normal and
+    uv."""
+    o, d = ray.origin, ray.direction
+    if inv_rows is not None:
+        o = _apply_rows(inv_rows, inv_off, o, translate=True)
+        d = _apply_rows(inv_rows, inv_off, d, translate=False)
+    t_near, t_far, axis_near, axis_far = slab(p_min, p_max, o, d)
+    hit_slab = t_near < t_far
+    near_in = hit_slab & (t_min < t_near) & (t_near < t_max)
+    far_in = hit_slab & (t_min < t_far) & (t_far < t_max)
+    t1 = torch.where(near_in, t_near, t_far)
+    t2 = torch.where(near_in, t_far, torch.full_like(t_far, BIG))
+    axis = torch.where(near_in, axis_near, axis_far)
+    return t1, t2, near_in | far_in, axis, near_in, d, o
+
+
+def normal_of(axis, near_sel, d_obj: Vec3, inv_rows=None) -> Vec3:
+    """Outward normal of the face `axis` (entry face if near_sel), in world
+    space."""
+    d_axis = _select_axis(d_obj.x, d_obj.y, d_obj.z, axis)
+    sign = torch.where(near_sel, -torch.sign(d_axis), torch.sign(d_axis))
+    n = _axis_normal(axis, sign)
+    if inv_rows is not None:
+        n = _apply_rows_t(inv_rows, n).unit()
+    return n
+
+
+def contains(p_min: Vec3, p_max: Vec3, p: Vec3, inv_rows=None, inv_off=None):
+    """box.rs:151-156 (inclusive bounds)."""
+    if inv_rows is not None:
+        p = _apply_rows(inv_rows, inv_off, p, translate=True)
+    return ((p.x >= p_min.x) & (p.x <= p_max.x) & (p.y >= p_min.y) & (p.y <= p_max.y)
+            & (p.z >= p_min.z) & (p.z <= p_max.z))

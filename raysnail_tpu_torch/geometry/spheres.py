@@ -134,3 +134,31 @@ def sphere_uv(offset: Vec3):
     phi = torch.atan2(-p.z, p.x)
     theta = torch.asin(torch.clamp(p.y, -1.0, 1.0))
     return phi / (2.0 * PI) + 0.5, theta / PI + 0.5
+
+
+# -- CSG and media support (one sphere, scalar params broadcast over rays) ----
+
+def interval(center: Vec3, radius, ray, t_min, t_max):
+    """(t1, t2, valid) of one sphere per ray (sphere.rs:83-109): (t1, t2)
+    when the near root is in range, (t2, t2) when only the far one is; the
+    lanes that miss keep the far root in both."""
+    l = ray.origin - center
+    half_b = ray.direction.dot(l)
+    c = l.length_squared() - radius * radius
+    delta = half_b * half_b - c
+    sq = torch.sqrt(torch.clamp_min(delta, 0.0))
+    t1 = -half_b - sq
+    t2 = -half_b + sq
+    ok = delta > 0.0
+    in1 = ok & (t_min < t1) & (t1 < t_max)
+    in2 = ok & (t_min < t2) & (t2 < t_max)
+    return torch.where(in1, t1, t2), t2, in1 | in2
+
+
+def contains(center: Vec3, radius, p: Vec3):
+    """sphere.rs:111-116 (strict)."""
+    return (center - p).length_squared() < radius * radius
+
+
+def normal_at(center: Vec3, radius, p: Vec3) -> Vec3:
+    return (p - center) * (1.0 / radius)

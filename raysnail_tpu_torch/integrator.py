@@ -116,7 +116,7 @@ def _make_shade(scene: scenelib.Scene, cfg: RenderConfig, routes: scenelib.Route
     def shade(arrays: scenelib.SceneArrays, o: Vec3, d: Vec3, T: Vec3, L: Vec3,
               alive, kb, time=None):
         zeros = Vec3.zeros(d.x.shape, T.x.dtype, T.x.device)
-        hit = scenelib.intersect(scene, arrays, Ray(o, d, time), cfg.t_min, cfg.t_max,
+        hit = scenelib.intersect(scene, arrays, Ray(o, d, time), cfg.t_min, cfg.t_max, kb,
                                  routes, active=alive)
 
         # miss -> background, die (camera.rs:254)

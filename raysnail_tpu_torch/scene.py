@@ -14,8 +14,11 @@ BVH with its coarse cut (`_leaf_tree`) and 128-wide leaf blocks
 (`_pack_leaf_blocks`; `_pack_mxu_blocks` for meshes compiled with
 RAYSNAIL_MESH_SOLVER=mxu), equal to the JAX compile's arrays.
 
-Primitives and features not ported yet raise NotImplementedError at
-compile, naming their ROADMAP item.
+CSG objects lower to static trees of `geometry.csg` nodes and constant
+media to `geometry.media` nodes, their transforms pushed down to the
+leaves, as the JAX package lowers them (`_leaf_of`, `_lower_csg`). The
+Mandelbulb is not ported yet: it raises NotImplementedError at compile,
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -33,10 +36,12 @@ from raysnail_tpu_torch import materials as matlib
 from raysnail_tpu_torch import textures as texlib
 from raysnail_tpu_torch.config import entry_device
 from raysnail_tpu_torch.accel.bvh import build_bvh, coarse_cut, relinearize_octants
-from raysnail_tpu_torch.geometry import boxes, quadrics, rects, spheres, triangles
+from raysnail_tpu_torch.geometry import boxes, csg, quadrics, rects, spheres, triangles
+from raysnail_tpu_torch.geometry import media as medialib
 from raysnail_tpu_torch.geometry import transforms as tf
 from raysnail_tpu_torch.geometry.hit import Hit, combine_hits, miss
 from raysnail_tpu_torch.ops.bvh_traverse import COARSE_MAX, LANES, MXU_LANES, NF
+from raysnail_tpu_torch.prelude import rng as prng
 from raysnail_tpu_torch.prelude.vec import Vec3
 
 # the JAX package's packing gates and layout constants, kept for parity
@@ -52,8 +57,6 @@ BRUTE_FORCE_MAX = 32768    # meshes up to this many triangles: dense sweep on th
 OCTANT_CAP = 32768
 
 _NOT_PORTED = {
-    ir.Csg: "CSG (ROADMAP M13)",
-    ir.ConstantMedium: "media (ROADMAP M13)",
     ir.Mandelbulb: "the Mandelbulb (ROADMAP M14)",
 }
 
@@ -91,6 +94,8 @@ class SceneStatic:
     mix_depth: int = 1        # max Mixed-material nesting (resolve iterations)
     tri_brute: bool = False   # dense triangle sweep on the CPU (small meshes)
     moving: bool = False      # some sphere moves (motion blur): centers follow ray.time
+    n_media: int = 0
+    n_csg: int = 0
 
 
 @dataclasses.dataclass
@@ -98,6 +103,13 @@ class Scene:
     arrays: SceneArrays
     static: SceneStatic
     device: torch.device
+    csg_trees: tuple = ()     # geometry.csg trees, in compile order
+    media: tuple = ()         # geometry.media.MediumNode, in compile order
+    # csg.group_trees(csg_trees): the trees of one structure stacked
+    csg_groups: tuple = dataclasses.field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        self.csg_groups = csg.group_trees(self.csg_trees)
 
 
 class Routes(NamedTuple):
@@ -111,14 +123,17 @@ class Routes(NamedTuple):
     packet: Optional[bool] = None
 
 
-def intersect(scene: Scene, arrays: SceneArrays, ray, t_min, t_max,
+def intersect(scene: Scene, arrays: SceneArrays, ray, t_min, t_max, key=None,
               routes: Routes = Routes(), active=None) -> Hit:
     """Closest hit across all primitive groups, in the JAX package's order:
-    spheres, boxes, rects, quadrics, triangles. `arrays` is passed separately so a caller can
-    render other scene data (e.g. converted from the JAX package) with the
-    same static structure. `active` is the integrator's alive mask: on the
-    kernel routes dead lanes admit no BVH node, and the box and triangle
-    routes take the best hit so far as their admission cap (t_cap)."""
+    spheres, boxes, rects, quadrics, triangles, then the CSG trees and the
+    media. `arrays` is passed separately so a caller can render other scene
+    data (e.g. converted from the JAX package) with the same static
+    structure. `key` is the per-ray key batch: only the media draw from it,
+    one uniform per medium, and a scene with media needs it. `active` is the
+    integrator's alive mask: on the kernel routes dead lanes admit no BVH
+    node, and the box and triangle routes take the best hit so far as their
+    admission cap (t_cap); the trees and media come after, uncapped."""
     d = ray.direction
     best = miss(d.x.shape, d.x.dtype, d.x.device)
     if arrays.spheres is not None:
@@ -148,6 +163,11 @@ def intersect(scene: Scene, arrays: SceneArrays, ray, t_min, t_max,
         else:
             tri_hit = triangles.intersect_brute(arrays.triangles, ray, t_min, t_max)
         best = combine_hits(best, tri_hit)
+    if scene.csg_trees:
+        best = combine_hits(best, csg.intersect_trees(scene.csg_groups, ray, t_min, t_max))
+    if scene.media:
+        us = prng.ray_uniforms(prng.fold_all(key, prng.MEDIUM), len(scene.media), d.x.dtype)
+        best = combine_hits(best, medialib.intersect_media(scene.media, ray, t_min, t_max, us))
     return best
 
 
@@ -312,7 +332,9 @@ class _Tables:
 def _compile(builder: SceneBuilder, dtype, device: torch.device, mesh_solver=None) -> Scene:
     tables = _Tables()
     sph, box_list, rect_list, quad_list, mesh_list = [], [], [], [], []
+    csg_trees, media_nodes = [], []
     moving = False
+    lower = dict(tables=tables, dtype=dtype, device=device, mesh_solver=mesh_solver)
 
     for obj in builder.objects:
         for kind, what in _NOT_PORTED.items():
@@ -345,6 +367,14 @@ def _compile(builder: SceneBuilder, dtype, device: torch.device, mesh_solver=Non
             quad_list.append((tf.transform_quadric(coeffs, m) if m is not None else coeffs, mat))
         elif isinstance(obj, ir.Mesh):
             mesh_list.append((obj, tables.material(obj.material)))
+        elif isinstance(obj, ir.Csg):
+            csg_trees.append(_lower_csg(obj, m, **lower))
+        elif isinstance(obj, ir.ConstantMedium):
+            mat = tables.material(ir.Isotropic(obj.rgb))
+            leaf = _leaf_of(obj.boundary, m, -1, register_material=False, **lower)
+            media_nodes.append(medialib.MediumNode(
+                boundary=leaf, mat_id=mat,
+                neg_inv_density=torch.tensor(-1.0 / obj.density, dtype=dtype, device=device)))
         else:
             raise TypeError(f"unknown object {obj!r}")
 
@@ -424,15 +454,7 @@ def _compile(builder: SceneBuilder, dtype, device: torch.device, mesh_solver=Non
             *(f32(c) for c in cols), mat_id=i32([q[1] for q in quad_list]),
             active=flags(len(quad_list)))
 
-    tri_group = None
-    if mesh_list:
-        tri = _build_triangles(mesh_list, mesh_solver)
-        tri_group = triangles.TriangleGroup(
-            **{k: vec(v) for k, v in tri.items() if k in ("p0", "edge_a", "edge_d", "n0",
-                                                          "n1", "n2")},
-            mat_id=i32(tri["mat_id"]),
-            **dict(zip((*pk_names, "pk_tri"),
-                       packed([tri[k] for k in (*pk_names, "pk_tri")]))))
+    tri_group = _triangle_group(mesh_list, mesh_solver, dtype, device) if mesh_list else None
 
     light_arrays = None
     light_kinds = set()
@@ -502,8 +524,89 @@ def _compile(builder: SceneBuilder, dtype, device: torch.device, mesh_solver=Non
         light_kinds=frozenset(light_kinds), has_lights=light_arrays is not None,
         has_absorb=has_absorb, mix_depth=tables.mix_depth,
         tri_brute=tri_group is not None and tri_group.mat_id.shape[0] <= BRUTE_FORCE_MAX,
-        moving=moving)
-    return Scene(arrays=arrays, static=static, device=device)
+        moving=moving, n_media=len(media_nodes), n_csg=len(csg_trees))
+    return Scene(arrays=arrays, static=static, device=device, csg_trees=tuple(csg_trees),
+                 media=tuple(media_nodes))
+
+
+# -- CSG and media lowering ---------------------------------------------------
+
+def _combine_tf(parent, own):
+    if parent is None:
+        return own
+    if own is None:
+        return parent
+    return parent @ own  # the child's own transform applies first
+
+
+def _leaf_of(obj, m, inherit_mat, tables, dtype, device, mesh_solver=None,
+             register_material=True):
+    """Lower a CSG child (sphere, box, quadric, rect, mesh or CSG) to a leaf
+    or node, pushing the accumulated transform m down; parameters become
+    0-d tensors on `device`."""
+    m = _combine_tf(m, ir.unmat4(obj.transform) if getattr(obj, "transform", None) else None)
+    mat = tables.material(obj.material) if register_material else inherit_mat
+
+    def scal(x):
+        return torch.tensor(float(x), dtype=dtype, device=device)
+
+    def vec(c):
+        return Vec3.full(tuple(float(x) for x in c), (), dtype, device)
+
+    def rows(m):
+        rot, off = tf.inverse_rows(m)
+        return tuple(vec(rot[i]) for i in range(3)), vec(off)
+
+    def quadric(coeffs):
+        return csg.QuadricLeaf(coeffs=quadrics.Coeffs(*(scal(c) for c in coeffs)), mat_id=mat)
+
+    if isinstance(obj, ir.Sphere):
+        ts = (1.0, np.zeros(3)) if m is None else tf.is_translate_uniform_scale(m)
+        if ts is None:
+            return quadric(tf.transform_quadric(tf.sphere_to_quadric(obj.center, obj.radius), m))
+        s, off = ts
+        center = obj.center if m is None else np.asarray(obj.center) * s + off
+        return csg.SphereLeaf(center=vec(center), radius=scal(obj.radius * s), mat_id=mat)
+    if isinstance(obj, ir.Box):
+        inv_rows, inv_off = rows(m) if m is not None else (None, None)
+        return csg.BoxLeaf(p_min=vec(obj.p_min), p_max=vec(obj.p_max), inv_rows=inv_rows,
+                           inv_off=inv_off, mat_id=mat)
+    if isinstance(obj, ir.Quadric):
+        coeffs = tuple(float(c) for c in obj.coeffs)
+        return quadric(tf.transform_quadric(coeffs, m) if m is not None else coeffs)
+    if isinstance(obj, ir.Rect):
+        inv_rows, inv_off = rows(m) if m is not None else (None, None)
+        return csg.RectLeaf(k_axis=int(obj.k_axis), k=scal(obj.k), a0=scal(obj.a0),
+                            a1=scal(obj.a1), b0=scal(obj.b0), b1=scal(obj.b1),
+                            inv_rows=inv_rows, inv_off=inv_off, mat_id=mat)
+    if isinstance(obj, ir.Mesh):
+        if m is not None:
+            v = np.asarray(obj.vertices, np.float64)
+            vh = np.concatenate([v, np.ones((len(v), 1))], 1)
+            normals = None if obj.normals is None else tuple(
+                map(tuple, np.asarray(obj.normals, np.float64) @ np.linalg.inv(m[:3, :3])))
+            obj = dataclasses.replace(obj, vertices=tuple(map(tuple, (vh @ m.T)[:, :3])),
+                                      normals=normals)
+        group = _triangle_group([(obj, mat)], mesh_solver, dtype, device)
+        return csg.MeshLeaf(group=group, mat_id=mat,
+                            brute=int(group.mat_id.shape[0]) <= BRUTE_FORCE_MAX)
+    if isinstance(obj, ir.Csg):
+        return _lower_csg(obj, m, tables, dtype, device, mesh_solver)
+    raise TypeError(f"unsupported CSG child {obj!r}")
+
+
+def _lower_csg(obj: ir.Csg, m, tables, dtype, device, mesh_solver=None):
+    """A CSG object whose own transform is folded into m already -> its node."""
+    mat = tables.material(obj.material)
+    lower = dict(tables=tables, dtype=dtype, device=device, mesh_solver=mesh_solver)
+    left = _leaf_of(obj.left, m, -1, **lower)
+    right = _leaf_of(obj.right, m, -1, **lower)
+    if obj.op == "intersection":
+        return csg.IntersectionNode(left=left, right=right, mat_id=mat)
+    if obj.op == "difference":
+        return csg.DifferenceNode(plus=left, minus=right, mat_id=mat,
+                                  minus_mat_id=getattr(right, "mat_id", -1))
+    raise ValueError(f"unknown csg op {obj.op}")
 
 
 # -- host packing for the BVH traversal kernel -------------------------------
@@ -595,6 +698,21 @@ def _pack_mxu_blocks(bb_min, bb_max, nrm, q, r, e1, e2, np0, attr_fields):
     for i, f in enumerate(attr_fields):
         pk[:, i, 512:640] = ro(f)
     return pk_bb, pk_links, pk_cbb, pk_crange, pk
+
+
+def _triangle_group(mesh_list, solver, dtype, device) -> triangles.TriangleGroup:
+    """The merged triangle pool of `mesh_list` as tensors on `device`."""
+    tri = _build_triangles(mesh_list, solver)
+
+    def vec(x):
+        return Vec3(*(torch.as_tensor(c, dtype=dtype, device=device)
+                      for c in np.asarray(x, np.float64).reshape(-1, 3).T))
+
+    names = ("pk_bb", "pk_links", "pk_cbb", "pk_crange", "pk_tri")
+    return triangles.TriangleGroup(
+        **{k: vec(tri[k]) for k in ("p0", "edge_a", "edge_d", "n0", "n1", "n2")},
+        mat_id=torch.as_tensor(np.asarray(tri["mat_id"], np.int32), device=device),
+        **{k: torch.as_tensor(tri[k], device=device) for k in names})
 
 
 def _build_triangles(mesh_list, solver=None) -> dict:

@@ -56,17 +56,20 @@ def golden_configs(device):
     from raysnail_tpu_torch.camera import build_camera
     from raysnail_tpu_torch.config import RenderConfig
     from raysnail_tpu_torch.scene import SceneBuilder
-    from raysnail_tpu_torch.scenes import book1, cornell
+    from raysnail_tpu_torch.scenes import book1, book2, cornell
     from raysnail_tpu_torch.sdl.driver import build_scene
 
     out = {}
 
-    def sdl_entry():
-        cfg = RenderConfig(width=96, height=64, samples=4, max_depth=8)
-        scene, cam = build_scene(os.path.join(REPO, "sdl", "example.sdl"), cfg, device)
-        return scene, cam, cfg, 7
+    def sdl(name):
+        def entry():
+            cfg = RenderConfig(width=96, height=64, samples=4, max_depth=8)
+            scene, cam = build_scene(os.path.join(REPO, "sdl", name), cfg, device)
+            return scene, cam, cfg, 7
+        return entry
 
-    out["example.sdl"] = sdl_entry
+    for name in ("example.sdl", "quadric.sdl", "csg.sdl"):
+        out[name] = sdl(name)
 
     def cornell_entry():
         # held like every anchor, with a thin margin: its rotated carton
@@ -84,6 +87,15 @@ def golden_configs(device):
                 book1.balls_camera(cfg.width, cfg.height, device=device), cfg, 7)
 
     out["book1"] = book1_entry
+
+    def book2_entry():
+        # 400 ground boxes (the box kernel K3 on the card), a moving sphere
+        # (K1's moving form), media, an image and a Perlin texture
+        cfg = RenderConfig(width=96, height=54, samples=4, max_depth=6)
+        return (book2.all_feature_scene(7).compile(cfg.dtype, device),
+                book2.book2_camera(cfg.width, cfg.height, device=device), cfg, 7)
+
+    out["book2"] = book2_entry
 
     def mesh_entry():
         cfg = RenderConfig(width=96, height=64, samples=4, max_depth=4)

@@ -446,3 +446,31 @@ def test_probe_kernels_mask_a_ragged_last_packet(probe_case):
         assert probes.compare(key, kernel(cut), plain(cut))["bit_equal"], key
     with pytest.raises(ValueError, match="contiguous"):
         bp.probe_io(tuple(a[::2] for a in cut.o), tuple(a[::2] for a in cut.d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["quadric.sdl", "csg.sdl"])
+def test_csg_anchor_holds_on_the_card(cuda_device, name):
+    from raysnail_tpu_torch.utils import golden
+
+    golden.check_anchor(name, golden.load_golden(), "cuda")
+
+
+@pytest.mark.cuda
+def test_book2_launches_the_box_kernel_and_the_moving_sphere_form(cuda_device):
+    """book 2 on the card: its 400 ground boxes go through the traversal
+    kernel's box kind and its moving sphere through K1's moving form, on
+    every shade iteration; its anchor's mean holds (its thumbnail pins one
+    compiler's rounding, tests/test_torch_media.py)."""
+    from raysnail_tpu_torch.render import make_frame_step
+    from raysnail_tpu_torch.utils import golden
+
+    scene, camera, cfg, seed = golden.golden_configs("cuda")["book2"]()
+    smt.sphere_min_t.launches = smt.sphere_min_t.moving_launches = 0
+    bt.bvh_traverse.launches = {k: 0 for k in bt.bvh_traverse.launches}
+    _, iterations = make_frame_step(scene, cfg)(scene.arrays, camera, seed)
+    assert iterations > 0
+    assert bt.bvh_traverse.launches["box"] >= iterations
+    assert smt.sphere_min_t.moving_launches >= iterations
+    res = golden.anchor_drift("book2", golden.load_golden(), "cuda")
+    assert res["dmean"] <= golden.MEAN_ATOL, res

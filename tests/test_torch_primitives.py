@@ -534,11 +534,6 @@ def test_moving_balls_blur():
     assert (d == 0).mean() > 0.05 and (d > 1e-3).mean() > 0.05
 
 
-def test_cornell_smoke_waits_for_media():
-    with pytest.raises(NotImplementedError, match="ROADMAP M13"):
-        tcornell.cornell_box(smoke=True)
-
-
 # -- painter ------------------------------------------------------------------------------------
 
 def test_render_state_round_trips_between_the_packages(tmp_path):
