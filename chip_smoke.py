@@ -26,15 +26,22 @@ and exits non-zero if any fails:
               spheres (c), the static book 1 frame's primary rays, and in its
               moving form on the moving book 1 frame's primary rays (d) and
               on their bounce rays (e): bit for bit, with the pairs that
-              take the root.
+              take the root. The Mandelbulb march (K6) on the
+              mandelbulb-passes4 camera's 150,000 primary rays in tile order
+              and on their bounce rays (cosine directions about the hit
+              normals from a seeded generator, the rays that missed as dead
+              lanes): t, valid, normal, uv and the step and iteration counts
+              bit for bit; steps per ray, DE iterations per step and each
+              warp's idle share; call, device and plain ms, the bound and
+              the issue floor without FMA.
               Every traversal probe (ray I/O, walk, sweep, walk latency, the
               V0-V8 bisect) against its plain version, on the probes' own
               case knot-9600 and on mesh-200k: integers and min-t bit for
               bit, the near accumulator within probes.ACC_RTOL
   4. golden   the anchors example.sdl, mesh, mesh-binned, boxfield-kernel,
-              book1-spherebvh, book1, cornell, quadric.sdl and csg.sdl on the
-              card, against the committed tests/golden/golden.npz, with the
-              kernel launches of each; the open anchor book2 (OPEN_ANCHORS:
+              book1-spherebvh, book1, cornell, quadric.sdl, csg.sdl and
+              mandelbulb on the card, against the committed
+              tests/golden/golden.npz, with the kernel launches of each; the open anchor book2 (OPEN_ANCHORS:
               its mean held, its thumbnail reported), which must launch the
               box kernel and K1's moving form; then the mesh, box and sphere
               anchors forced through the packet kernel in every (kind, stream,
@@ -59,19 +66,26 @@ and exits non-zero if any fails:
               against its plain version on 8,192 of its primary rays; the 9,600-triangle
               mesh+arealight frame; a passes=2 render of example.sdl at
               800x500@16spp; the CSG and media frames of CSG_FRAMES
-              (quadric.sdl 800x500@64spp, csg.sdl and declares.sdl
-              800x500@16spp, book2 and cornell-smoke 400x400@25spp depth 8),
+              (quadric.sdl, csg.sdl and declares.sdl 800x500@16spp, book2
+              and cornell-smoke 400x400@25spp depth 8),
               each a first frame with its kernel launches per shade iteration
-              and its peak memory. Each run reads the kernel launch counts it
-              made, and the run prints its total seconds.
+              and its peak memory; mandelbulb-passes4 (500x300@25spp, depth
+              6, passes 4, seed 7, as bench.py), whose K6 launches must equal
+              its intersect calls; two example.sdl frames at 200x125@16spp
+              through the scan integrator, one with path_regen="never" and
+              one with rng="threefry", each through K1 and with its channel
+              means within SCAN_MEAN_ATOL of the default frame's. Each run
+              reads the kernel launch counts it made, and the run prints its
+              total seconds.
   6. profile  (only with --profile, after the phases above) device time per call
               (device_ms: calls queued behind a spin kernel, CUDA events) of
               sphere_min_t on (a), static book 1, (d) and (e); K1's static
               form against K4 (per ray, packet) on random sphere groups of
               CROSSOVER_S spheres; each traversal kind on the primary and on
               the bounce rays; torch.profiler over the moving book 1 frame,
-              one mesh-200k frame per configuration, the mesh-800k frames
-              and the five CSG and media frames: device time by kernel, the
+              one mesh-200k frame per configuration, the mesh-800k frames,
+              the five CSG and media frames and the first pass of
+              mandelbulb-passes4: device time by kernel, the
               named kernels' share, cudaLaunchKernel calls and the device's
               busy share; and the cudaLaunchKernel calls that each CSG and
               media frame's trees and media add to one intersect call
@@ -107,7 +121,7 @@ KNOT_200K, KNOT_800K, KNOT_AREA = (1600, 64), (6400, 64), (200, 24)  # (n_seg, n
 TIMING_RUNS = 20
 PLAIN_RUNS = 3                               # the plain BVH walk takes up to seconds
 ANCHORS = ("example.sdl", "mesh", "mesh-binned", "boxfield-kernel", "book1-spherebvh",
-           "book1", "cornell", "quadric.sdl", "csg.sdl")
+           "book1", "cornell", "quadric.sdl", "csg.sdl", "mandelbulb")
 # rendered and reported, thumbnail not held: book 2's moves beyond THUMB_ATOL
 # with the rounding of one sphere quadratic (tests/test_torch_media.py::
 # test_book2_thumbnail_moves_with_rounding; the JAX package run op by op
@@ -120,13 +134,23 @@ SINGLE_ORDER_CAP = 4600                      # the JAX package's node cap: one o
 SUMS_ATOL = 1e-3                             # render_sums' image against the frame step's
 PASSES_SAMPLES = 16                          # the passes=2 frame's requested spp
 # CSG and media: (label, SDL file or scene, width, height, requested spp,
-# depth, seed); quadric.sdl, book2 and cornell-smoke at bench.py:170-191's
-# sizes and seed, csg.sdl and declares.sdl beside quadric.sdl at 16 spp
-CSG_FRAMES = (("quadric.sdl", "quadric.sdl", 800, 500, 65, 8, 1),
+# depth, seed); book2 and cornell-smoke at bench.py:177-191's sizes and
+# seed, quadric.sdl at bench.py:170-172's width with 16 spp (65 until the
+# Mandelbulb's phases came, to keep the run's time), csg.sdl and
+# declares.sdl beside it
+CSG_FRAMES = (("quadric.sdl", "quadric.sdl", 800, 500, 16, 8, 1),
               ("csg.sdl", "csg.sdl", 800, 500, 16, 8, 1),
               ("declares.sdl", "declares.sdl", 800, 500, 16, 8, 1),
               ("book2", "book2", 400, 400, 25, 8, 1),
               ("cornell-smoke", "cornell-smoke", 400, 400, 25, 8, 1))
+# mandelbulb-passes4 (bench.py:240-250, render_passes seed bench.py:76)
+BULB_W, BULB_H, BULB_SPP, BULB_DEPTH, BULB_PASSES, BULB_SEED = 500, 300, 25, 6, 4, 7
+# the scan and threefry frames of example.sdl, and the largest difference of
+# a channel mean from the default frame's: the fast scan traces the default
+# frame's paths, threefry draws other numbers (CPU reading at 96x64@4spp:
+# 8.9e-4, tests/test_torch_scan.py)
+SCAN_W, SCAN_H, SCAN_SPP, SCAN_MEAN_ATOL = 200, 125, 16, 0.01
+WARP = 32
 # the card's published peaks (H100 SXM): device memory bytes/s, FP32 FLOP/s
 # outside the tensor cores
 HBM_BYTES_PER_S, FP32_FLOPS = 3.35e12, 67e12
@@ -295,6 +319,117 @@ def moving_bounce_rays(args, motion, t, idx, gen):
     dirs = normal + u / u.norm(dim=1, keepdim=True)
     dirs = dirs / dirs.norm(dim=1, keepdim=True).clamp_min(1e-6)
     return (cols(p), cols(dirs), c, r2, active), {"speed_xyz": motion["speed_xyz"], "time": tm}
+
+
+def warp_idle(work: torch.Tensor) -> float:
+    """Idle share of the lanes of 32-ray warps (consecutive rays) that each
+    run until their slowest ray is done: 1 - sum(work) / (32 * max per warp)."""
+    n = work.shape[0] // WARP * WARP
+    w = work[:n].reshape(-1, WARP).to(torch.float64)
+    busy = float(w.amax(dim=1).sum()) * WARP
+    return 1.0 - float(w.sum()) / busy if busy else 0.0
+
+
+def check_march_kernel(o3, d3, active, t_min, t_max, label: str) -> dict:
+    """K6 against its plain version on the same rays: t, valid, normal, u, v
+    and the step and iteration counts bit for bit. Times the kernel per call
+    (CUDA events around the call, and device_ms), and the plain version
+    once. -> the record's numbers and the outputs."""
+    from raysnail_tpu_torch.ops import mandelbulb_march as mm
+
+    call = lambda: mm.mandelbulb_march(o3, d3, t_min, t_max, active)
+    with counts_kept():
+        got = mm.mandelbulb_march(o3, d3, t_min, t_max, active, stats=True)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = mm.mandelbulb_march_plain(o3, d3, t_min, t_max, active, stats=True)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        names = ("t", "valid", "normal", "u", "v", "counts")
+        differ = {k: int((a != b).sum()) for k, a, b in zip(names, got, want)
+                  if not torch.equal(a, b)}
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+        ms = time_ms(call)
+        dev_ms = device_ms(call)
+    t, valid, _, _, _, counts = got
+    steps, march_iters, normal_iters = counts
+    n = t.shape[0]
+    live = steps > 0
+    ops = mm.operations(counts, valid)
+    out = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           **bound(n * mm.RAY_BYTES, ops), "issue_floor_ms": ops / FP32_NO_FMA * 1e3,
+           "rays": n, "hits": int(valid.sum()), "marched": int(live.sum()),
+           "steps_mean": float(steps[live].float().mean()) if bool(live.any()) else 0.0,
+           "steps_max": int(steps.max()),
+           "iterations_per_step": float(march_iters.sum()) / max(int(steps.sum()), 1),
+           "warp_idle_steps": warp_idle(steps),
+           "warp_idle_iterations": warp_idle(march_iters + normal_iters)}
+    phase("kernels", f"mandelbulb_march {label}: N={n}, {out['marched']} marched, "
+          f"{out['hits']} hits; outputs that differ from the plain version "
+          f"{differ or 'none'} (max|d|={err!r}); steps per marched ray mean "
+          f"{out['steps_mean']!r}, max {out['steps_max']}; DE iterations per step "
+          f"{out['iterations_per_step']!r}; warp idle share {out['warp_idle_steps']!r} by "
+          f"steps, {out['warp_idle_iterations']!r} by DE iterations; kernel {ms!r} ms a call "
+          f"(median of {TIMING_RUNS}), {dev_ms!r} ms device time a call, plain {plain_ms!r} "
+          f"ms (one call); bound {out['bound_ms']!r} ms by {out['bound_by']} ({ops} "
+          f"operations), issue floor without FMA {out['issue_floor_ms']!r} ms")
+    if differ:
+        raise AssertionError(f"mandelbulb_march {label}: the kernel disagrees with the plain "
+                             f"version in {differ}")
+    return {**out, "outputs": got}
+
+
+def bulb_primary_rays(camera, cfg, device):
+    """The mandelbulb-passes4 frame's primary rays of sample 0 in 16x8
+    image-tile order, as its sample-step path makes them -> (3, N) origin
+    and direction."""
+    from raysnail_tpu_torch.camera import generate_rays
+    from raysnail_tpu_torch.prelude import rng as prng
+    from raysnail_tpu_torch.render import _tile_grid
+
+    px, py, _ = _tile_grid(cfg)
+    px, py = torch.as_tensor(px, device=device), torch.as_tensor(py, device=device)
+    keys = prng.fold_all(prng.fast_streams(BULB_SEED, py.long() * cfg.width + px.long()), 0)
+    zero = torch.zeros_like(px)
+    ray = generate_rays(camera, px, py, zero, zero, cfg.sqrt_spp, cfg.width, cfg.height, keys)
+    return torch.stack(tuple(ray.origin)), torch.stack(tuple(ray.direction))
+
+
+def bulb_bounce_rays(o3, d3, out, gen):
+    """The primary rays' next rays, in place: from each hit point a
+    cosine-weighted direction about the normal turned toward the ray, from
+    a seeded generator; a ray that missed is a dead lane. -> (origin,
+    direction, active)."""
+    t, valid, normal = out[0], out[1], out[2]
+    facing = (d3 * normal).sum(0) < 0.0
+    nrm = torch.where(facing, normal, -normal)
+    u = torch.randn(3, t.shape[0], generator=gen, device=t.device)
+    d = nrm + u / u.norm(dim=0, keepdim=True)
+    d = d / d.norm(dim=0, keepdim=True).clamp_min(1e-6)
+    o = torch.where(valid, o3 + d3 * torch.where(valid, t, 0.0), o3)
+    d = torch.where(valid, d, d3)
+    return o.contiguous(), d.contiguous(), valid.clone()
+
+
+@contextlib.contextmanager
+def intersect_calls():
+    """Count scene.intersect calls in the block (the integrator calls it
+    once a shade iteration): -> a dict whose "n" holds the count."""
+    from raysnail_tpu_torch import scene as scene_mod
+
+    seen = {"n": 0}
+    inner = scene_mod.intersect
+
+    def counted(*args, **kwargs):
+        seen["n"] += 1
+        return inner(*args, **kwargs)
+
+    scene_mod.intersect = counted
+    try:
+        yield seen
+    finally:
+        scene_mod.intersect = inner
 
 
 def check_bvh_kernel(kind, args, t_min, t_max, label: str, time_it: bool):
@@ -572,11 +707,13 @@ class Counters:
     def __init__(self):
         from raysnail_tpu_torch.ops import bvh_probes as bp
         from raysnail_tpu_torch.ops import bvh_traverse as bt
+        from raysnail_tpu_torch.ops import mandelbulb_march as mm
         from raysnail_tpu_torch.ops import sphere_min_t as smt
         self.smt, self.bt, self.bp = smt.sphere_min_t, bt.bvh_traverse, bp
+        self.mm = mm.mandelbulb_march
 
     def reset(self):
-        self.smt.launches = self.smt.moving_launches = 0
+        self.smt.launches = self.smt.moving_launches = self.mm.launches = 0
         self.bt.launches = {k: 0 for k in self.bt.launches}
         for k in self.bp.launches:
             self.bp.launches[k] = 0
@@ -584,6 +721,7 @@ class Counters:
     def read(self) -> dict:
         return {"sphere_min_t": self.smt.launches,
                 "sphere_min_t/moving": self.smt.moving_launches,
+                "mandelbulb_march": self.mm.launches,
                 **{f"bvh_traverse/{k}": v for k, v in self.bt.launches.items()},
                 **{f"probe/{k}": v for k, v in self.bp.launches.items()}}
 
@@ -615,6 +753,7 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     from raysnail_tpu_torch.ops import _nvcc
     from raysnail_tpu_torch.ops import bvh_probes as bp
     from raysnail_tpu_torch.ops import bvh_traverse as bt
+    from raysnail_tpu_torch.ops import mandelbulb_march as mm
     from raysnail_tpu_torch.ops import sphere_min_t as smt
     from raysnail_tpu_torch.geometry import spheres as sphlib
     from raysnail_tpu_torch import render as render_mod
@@ -632,6 +771,7 @@ def run(device: torch.device, card: str, profile: bool) -> list:
             "bvh_traverse.cu": lambda: bt.build(verbose=True),
             "bvh_packet.cu": lambda: bt.build_packet(verbose=True),
             "bvh_probes.cu": lambda: bp.build(verbose=True),
+            "mandelbulb_march.cu": lambda: mm.build(verbose=True),
             "bvh_builder.cpp": native.build}
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {name: pool.submit(job) for name, job in jobs.items()}
@@ -710,6 +850,20 @@ def run(device: torch.device, card: str, profile: bool) -> list:
           f"(shutter times up to {float(vray.time.max())!r})")
     if not vscene.static.moving or vsph.pk_bb is not None or moved == 0:
         raise AssertionError("the moving book 1 scene does not move, or it was packed")
+
+    # the Mandelbulb march (K6): the mandelbulb-passes4 camera's primary rays
+    # in tile order, then their bounce rays in place
+    bcfg = RenderConfig(width=BULB_W, height=BULB_H, samples=BULB_SPP, max_depth=BULB_DEPTH,
+                        passes=BULB_PASSES)
+    bulb_scene, bulb_cam = golden.mandelbulb_scene(bcfg, device)
+    o_b, d_b = bulb_primary_rays(bulb_cam, bcfg, device)
+    res_bulb = check_march_kernel(o_b, d_b, None, bcfg.t_min, bcfg.t_max,
+                                  f"passes4 primary rays, {BULB_W}x{BULB_H} in tile order")
+    ob2, db2, act2 = bulb_bounce_rays(o_b, d_b, res_bulb["outputs"], gen)
+    res_bulb_b = check_march_kernel(ob2, db2, act2, bcfg.t_min, bcfg.t_max,
+                                    "passes4 bounce rays (dead lanes where the primary missed)")
+    if res_bulb["hits"] < BULB_W * BULB_H // 10 or res_bulb_b["marched"] == 0:
+        raise AssertionError("the passes4 rays barely meet the bulb")
 
     # bvh_traverse, kind "tri": the mesh-200k scene (its host compile is timed)
     mcfg = RenderConfig(width=MESH_W, height=MESH_H, samples=MESH_SPP, max_depth=MESH_DEPTH)
@@ -855,7 +1009,7 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     want = {"mesh": "bvh_traverse/tri", "mesh-binned": "bvh_traverse/tri",
             "boxfield-kernel": "bvh_traverse/box", "book1-spherebvh": "bvh_traverse/sphere",
             "book2": "bvh_traverse/box", "quadric.sdl": "sphere_min_t",
-            "csg.sdl": "sphere_min_t",
+            "csg.sdl": "sphere_min_t", "mandelbulb": "mandelbulb_march",
             **{name: "bvh_traverse/" + name.split("/", 1)[1]
                for name in golden.forced_mode_configs(device)}}
     for name, key in want.items():
@@ -1099,6 +1253,58 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     csg_runs = csg_frames(device, card, counters)
     book2_launches = csg_runs["book2"]["launches"]
 
+    # mandelbulb-passes4 through render_passes, as bench.py times it: a first
+    # pass over every pixel and three sparse passes, all on the sample-step
+    # path in tile order (make_frame_step is None for a Mandelbulb)
+    passes_seen = []
+    counters.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with intersect_calls() as calls:
+        img = render_passes(bulb_scene, bulb_cam, bcfg, seed=BULB_SEED,
+                            progress=lambda done, total, im: passes_seen.append(done))
+        torch.cuda.synchronize()
+    bulb_seconds = time.perf_counter() - t0
+    bulb_launches = counters.read()
+    bulb_peak = torch.cuda.max_memory_allocated()
+    bulb_rays = BULB_W * BULB_H * bcfg.effective_samples * BULB_PASSES
+    phase("main", f"mandelbulb-passes4 {BULB_W}x{BULB_H}@{bcfg.effective_samples}spp depth "
+          f"{BULB_DEPTH}, passes {BULB_PASSES}, first frame (no warm-up) on {card}: "
+          f"{bulb_seconds!r} s, {bulb_rays / bulb_seconds / 1e6!r} Mprimary-rays/s (every pass "
+          f"counted as a full frame of primary rays, as bench.py counts them), progress "
+          f"{passes_seen}, {calls['n']} intersect calls, launches {nonzero(bulb_launches)}, "
+          f"peak {bulb_peak} B allocated; image mean {img.mean()!r}, std {img.std()!r}")
+    if (bulb_launches["mandelbulb_march"] != calls["n"] or calls["n"] == 0
+            or bulb_launches["sphere_min_t"] != calls["n"]):
+        raise AssertionError("mandelbulb-passes4: K6 and K1 did not run once an intersect call")
+    if not np.isfinite(img).all() or img.shape != (BULB_H, BULB_W, 3) or img.std() < 0.01:
+        raise AssertionError(f"mandelbulb-passes4: image not finite or flat (std {img.std()})")
+
+    # the scan integrator at a small size: path_regen="never" and threefry,
+    # against the default frame (the shuffled regeneration) of the same size
+    scfg = RenderConfig(width=SCAN_W, height=SCAN_H, samples=SCAN_SPP)
+    sc_scene, sc_cam = build_scene(SCENE, scfg, device)
+    base = render(sc_scene, sc_cam, scfg, seed=0)
+    scan_launches = {}
+    for label, setting in (("path_regen='never'", {"path_regen": "never"}),
+                           ("rng='threefry'", {"rng": "threefry"})):
+        counters.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render(sc_scene, sc_cam, scfg.replace(**setting), seed=0)
+        seconds = time.perf_counter() - t0
+        scan_launches[label] = launches = counters.read()
+        dmean = float(np.abs(img.mean(axis=(0, 1)) - base.mean(axis=(0, 1))).max())
+        phase("main", f"example.sdl {SCAN_W}x{SCAN_H}@{scfg.effective_samples}spp, {label} "
+              f"(the scan integrator) on {card}: {seconds!r} s, "
+              f"{SCAN_W * SCAN_H * scfg.effective_samples / seconds / 1e6!r} Mprimary-rays/s, "
+              f"launches {nonzero(launches)}; channel means {img.mean(axis=(0, 1)).tolist()}, "
+              f"max |d mean| against the default frame {dmean!r} (<= {SCAN_MEAN_ATOL})")
+        if (launches["sphere_min_t"] < scfg.effective_samples * scfg.max_depth
+                or not np.isfinite(img).all() or dmean > SCAN_MEAN_ATOL):
+            raise AssertionError(f"the {label} frame did not go through K1 or is off")
+
     if profile:
         smt_cases = {"(a) example.sdl primary rays": (args_a, {}),
                      "static book 1 primary rays": (args_s, {}),
@@ -1127,6 +1333,14 @@ def run(device: torch.device, card: str, profile: bool) -> list:
                           kernel=("sphere_min_t_kernel", "bvh_traverse_kernel"),
                           kernel_name="K1 and K3")
             intersect_launches(r, label, device)
+        first = bcfg.replace(passes=1)
+        t0 = time.perf_counter()
+        render(bulb_scene, bulb_cam, first, seed=BULB_SEED)
+        torch.cuda.synchronize()
+        profile_frame(bulb_scene, bulb_cam, first, "mandelbulb-passes4, first pass",
+                      time.perf_counter() - t0, kernel=("mandelbulb_march_kernel",),
+                      kernel_name="K6",
+                      run=lambda: render(bulb_scene, bulb_cam, first, seed=BULB_SEED))
 
     # the kernels' records: `launches` from a main-path run (a frame where one
     # runs the kernel or mode, else its forced anchor render)
@@ -1151,6 +1365,16 @@ def run(device: torch.device, card: str, profile: bool) -> list:
          "ms": res_d["ms"], "plain_ms": res_d["plain_ms"], **{k: res_d[k] for k in smt_keys},
          "bounce_ms": res_e["ms"], "bounce_bound_ms": res_e["bound_ms"],
          "bounce_issue_floor_ms": res_e["issue_floor_ms"]}]
+    bulb_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "issue_floor_ms",
+                 "steps_mean", "steps_max", "iterations_per_step", "warp_idle_steps",
+                 "warp_idle_iterations")
+    records.append({"name": "mandelbulb_march", "route": "cuda",
+                    "source": src + "mandelbulb_march.cu",
+                    "replaces": "raysnail_tpu/geometry/mandelbulb.py:159",
+                    "launches": bulb_launches["mandelbulb_march"],
+                    "max_abs_err": max(res_bulb["max_abs_err"], res_bulb_b["max_abs_err"]),
+                    **{k: res_bulb[k] for k in bulb_keys},
+                    **{f"bounce_{k}": res_bulb_b[k] for k in bulb_keys if k != "bound_by"}})
     per_ray = {"tri": (res_tri, tri_launches),
                "box": (res_box, book2_launches["bvh_traverse/box"]),
                "sphere": (res_sph, anchor_launches["book1-spherebvh"]["bvh_traverse/sphere"])}
@@ -1244,15 +1468,16 @@ def counts_kept():
     """Every kernel's launch count is left as it was by the block: the
     launches made to measure a kernel are not the main path's."""
     from raysnail_tpu_torch.ops import bvh_traverse as bt
+    from raysnail_tpu_torch.ops import mandelbulb_march as mm
     from raysnail_tpu_torch.ops import sphere_min_t as smt
 
     saved = (smt.sphere_min_t.launches, smt.sphere_min_t.moving_launches,
-             dict(bt.bvh_traverse.launches))
+             mm.mandelbulb_march.launches, dict(bt.bvh_traverse.launches))
     try:
         yield
     finally:
         (smt.sphere_min_t.launches, smt.sphere_min_t.moving_launches,
-         bt.bvh_traverse.launches) = saved
+         mm.mandelbulb_march.launches, bt.bvh_traverse.launches) = saved
 
 
 SPIN_CYCLES = int(2e8)  # about 0.1 s at the H100's 1.98 GHz: longer than queuing the calls
@@ -1324,21 +1549,27 @@ def sphere_crossover(gen, device):
 
 def profile_frame(scene, camera, cfg, label: str, wall_s: float, seed: int = MESH_SEED,
                   kernel=("bvh_traverse_kernel", "bvh_packet_kernel"),
-                  kernel_name: str = "traversal kernel"):
-    """torch.profiler over one frame: device time by kernel, the share and
-    time per launch of the kernels whose names hold one of `kernel`, and the
-    busy share against the unprofiled frame's wall time `wall_s`."""
+                  kernel_name: str = "traversal kernel", run=None):
+    """torch.profiler over one frame (the frame step, or `run()` where
+    given): device time by kernel, the share and time per launch of the
+    kernels whose names hold one of `kernel`, and the busy share against the
+    unprofiled frame's wall time `wall_s`. Its shade iterations are counted
+    as its scene.intersect calls."""
     from torch.profiler import ProfilerActivity, profile
 
     from raysnail_tpu_torch.render import make_frame_step
 
-    step = make_frame_step(scene, cfg)
+    if run is None:
+        step = make_frame_step(scene, cfg)
+        run = lambda: step(scene.arrays, camera, seed)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, iterations = step(scene.arrays, camera, seed)
+    with intersect_calls() as calls, \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
         torch.cuda.synchronize()
     prof_wall = time.perf_counter() - t0
+    iterations = calls["n"]
 
     events = _device_events(prof)
     total = sum(_dev_us(e) for e in events)

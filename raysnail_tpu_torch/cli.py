@@ -4,6 +4,13 @@
 output.png. --checkpoint PATH (single-pass renders) writes the resumable
 render state there after every chunk and resumes from it when it exists.
 
+Instead of the reference's SDL2 preview window, --preview rewrites the
+output PNG as passes (or, with --checkpoint, chunks) complete, and
+--serve [PORT] serves a live HTTP preview on 127.0.0.1 (default port 8765;
+`io/preview.py`), whose DELETE request cancels the render. The JAX
+package's --pallas has no counterpart: on the card the kernels are the only
+route.
+
 --device picks where the render runs: `cuda` (the default) runs the
 hand-written kernels on the card; `cpu` runs their plain PyTorch versions,
 which is meant for tests.
@@ -39,6 +46,12 @@ def main(argv=None):
     ap.add_argument("--mis", action="store_true",
                     help="physically-correct one-sample MIS instead of the "
                          "reference-compat estimator")
+    ap.add_argument("--preview", action="store_true",
+                    help="rewrite the output PNG as passes complete")
+    ap.add_argument("--serve", type=int, nargs="?", const=8765, default=None,
+                    metavar="PORT",
+                    help="serve a live HTTP preview (the reference's SDL2 "
+                         "window equivalent) on PORT [8765]")
     args = ap.parse_args(argv)
 
     import os
@@ -66,20 +79,36 @@ def main(argv=None):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    server = None
+    if args.serve is not None:
+        from raysnail_tpu_torch.io.preview import PreviewServer
+
+        server = PreviewServer(port=args.serve)
+        print(f"live preview at http://127.0.0.1:{server.port}/")
+
     def progress(done, total, img=None):
         print(f"  {done}/{total} samples", flush=True)
+        if args.preview and img is not None:
+            Image.fromarray(colorlib.to_u8(img)).save(args.outfile)
+        if server is not None:
+            return server.target(done, total, img)
 
     sync()
     t0 = time.time()
-    if args.checkpoint and args.passes == 1:
-        from raysnail_tpu_torch.painter import RenderSession, RenderState
+    try:
+        if args.checkpoint and args.passes == 1:
+            from raysnail_tpu_torch.painter import RenderSession, RenderState
 
-        sess = RenderSession(scene, camera, cfg, seed=args.seed,
-                             checkpoint_path=args.checkpoint)
-        resume = RenderState.load(args.checkpoint) if os.path.exists(args.checkpoint) else None
-        img = sess.render(target=progress, resume=resume)
-    else:
-        img = render_passes(scene, camera, cfg, seed=args.seed, progress=progress)
+            sess = RenderSession(scene, camera, cfg, seed=args.seed,
+                                 checkpoint_path=args.checkpoint)
+            resume = (RenderState.load(args.checkpoint)
+                      if os.path.exists(args.checkpoint) else None)
+            img = sess.render(target=progress, resume=resume)
+        else:
+            img = render_passes(scene, camera, cfg, seed=args.seed, progress=progress)
+    finally:
+        if server is not None:
+            server.close()
     sync()
     dt = time.time() - t0
     rays = cfg.width * cfg.height * cfg.effective_samples * args.passes

@@ -1,8 +1,9 @@
 """Render configuration and reference-compatibility flags.
 
 Field for field the same as the JAX package's `RenderConfig`, with a torch
-dtype. The port runs the subset of options that its slice implements; a
-value it does not implement raises where it is used (see `unsupported`).
+dtype. The port runs every option of the forward render but those it
+leaves out by decision; such a value raises where it is used (see
+`unsupported`).
 
 Reference quirks covered (file:line cites into the Rust reference):
   * hardcoded 1/pi light-branch pdf         src/camera.rs:199
@@ -79,8 +80,10 @@ class RenderConfig:
     # two_level by RAYSNAIL_BVH_TWO_LEVEL), "force" always, "never" refuses
     # such a call. A field of the port only: the JAX package has one kernel.
     bvh_packet: str = "auto"
-    path_regen: str = "auto"     # "auto" = the shuffled regeneration frame step;
-                                 # "never" is not ported (the scan integrator, M7)
+    path_regen: str = "auto"     # "auto" = path regeneration (the shuffled frame
+                                 # step, the sample step's per-pixel loop) with
+                                 # the fast RNG; "never" = the per-sample scan
+                                 # integrator (integrator.radiance)
     mesh_sort: bool = False      # not ported, by decision (ROADMAP "Not to port")
     mesh_bin: str = "auto"       # ray binning ahead of the mesh kernel: "auto"
                                  # (= "entry" on CUDA, else "never") | "never" |
@@ -89,7 +92,8 @@ class RenderConfig:
     regen_chunk_cap: int = 0     # cap on the regen-shuffle chunk width C;
                                  # 0 = REGEN_CHUNK_CAP
     regen_window: int = 0        # 0 = full-width cell table (the only one ported)
-    rng: str = "auto"            # "auto" (= fast) | "fast"
+    rng: str = "auto"            # "auto" (= fast) | "fast" (counter hash) | "threefry"
+                                 # (jax.random's keys; the scan integrator)
 
     # Adaptive oversampling (multi-pass) ------------------------------------
     passes: int = 1
@@ -115,13 +119,11 @@ class RenderConfig:
 
     def unsupported(self) -> list[str]:
         """Settings this port cannot run: those of the JAX package that it
-        does not carry yet, with the ROADMAP item that brings each, and
-        values no package takes."""
+        leaves out by decision (ROADMAP "Not to port"), and values no
+        package takes."""
         out = []
-        if self.rng not in ("auto", "fast"):
-            out.append(f"rng={self.rng!r} (ROADMAP M18)")
-        if self.path_regen == "never":
-            out.append("path_regen='never': the scan integrator (ROADMAP M7)")
+        if self.rng not in ("auto", "fast", "threefry"):
+            out.append(f"rng={self.rng!r}: not 'auto', 'fast' or 'threefry'")
         if self.bvh_packet not in ("auto", "force", "never"):
             out.append(f"bvh_packet={self.bvh_packet!r}: not 'auto', 'force' or 'never'")
         if self.passes < 1:
@@ -129,7 +131,7 @@ class RenderConfig:
         if not self.noise_threshold >= 0.0:
             out.append(f"noise_threshold={self.noise_threshold}: not >= 0")
         if self.regen_window != 0:
-            out.append("regen_window != 0: not ported, by decision")
+            out.append("regen_window != 0: not ported, by decision (ROADMAP 'Not to port')")
         if self.mesh_sort:
             out.append("mesh_sort=True: not ported, by decision (ROADMAP 'Not to port')")
         if self.mesh_bin not in ("auto", "never", "entry", "dir", "entrydir", "miss"):

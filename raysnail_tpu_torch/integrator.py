@@ -1,10 +1,16 @@
 """The wavefront path-tracing integrator.
 
 The reference's recursive `ray_color` (src/camera.rs:156-255) as a bounce
-body over a dense ray batch with masked lanes, driven by the shuffled
-path-regeneration loop: when a lane's path dies it starts its next cell in
-place, so the loop runs for about spp x the mean path length iterations
-instead of spp x max_depth.
+body over a dense ray batch with masked lanes, driven by one of three loops:
+  * the shuffled path-regeneration loop (`radiance_regen_shuffle`, the
+    frame step) and its per-pixel form (`radiance_regen`, the sample step):
+    when a lane's path dies it starts its next cell in place, so the loop
+    runs for about spp x the mean path length iterations instead of
+    spp x max_depth;
+  * the per-sample scan (`radiance`, `radiance_and_alive`): max_depth
+    bounces of one sample per lane, dead lanes masked. It takes any keys
+    (fast streams or threefry keys); in the JAX package it is the gradient
+    path, which ROADMAP M15 ports onto it.
 
 Estimator (compat path, the default — camera.rs:194-247):
   * emitted term added every bounce (before scattering);
@@ -203,6 +209,43 @@ def _make_shade(scene: scenelib.Scene, cfg: RenderConfig, routes: scenelib.Route
         return o, d, T, L, alive
 
     return shade
+
+
+def radiance(scene: scenelib.Scene, arrays: scenelib.SceneArrays, cfg: RenderConfig,
+             ray: Ray, keys) -> Vec3:
+    """Per-ray radiance estimate after up to cfg.max_depth bounces.
+    `keys` is the per-ray key batch ((N,) fast streams or (N, 2) threefry
+    keys): every draw folds in the bounce index and a purpose tag, so the
+    estimate for a given (pixel, sample) is independent of batch tiling."""
+    return radiance_and_alive(scene, arrays, cfg, ray, keys)[0]
+
+
+def radiance_and_alive(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
+                       cfg: RenderConfig, ray: Ray, keys):
+    """`radiance` plus the per-bounce live-lane counts: the JAX package's
+    scan over max_depth bounces as a Python loop, bounce b drawing from
+    fold_all(keys, b). A path still alive after the budget contributes
+    nothing more (camera.rs:161-163).
+
+    The JAX package can rematerialise each bounce in the backward pass
+    (cfg.remat_bounces, `jax.checkpoint`); that changes no forward value,
+    and its counterpart, `torch.utils.checkpoint` per bounce, comes with the
+    gradient path (ROADMAP M15).
+
+    -> (L (N,) Vec3, live lanes after each bounce as a (max_depth,) int32
+    tensor on the rays' device; nothing is read back to the host)."""
+    shape = ray.direction.x.shape
+    dtype, device = ray.direction.x.dtype, ray.direction.x.device
+    shade = _make_shade(scene, cfg, kernel_routes(scene, arrays, cfg))
+    o, d = ray.origin, ray.direction
+    time = ray.time if scene.static.moving else None
+    T, L = Vec3.ones(shape, dtype, device), Vec3.zeros(shape, dtype, device)
+    alive = torch.ones(shape, dtype=torch.bool, device=device)
+    counts = torch.zeros(max(cfg.max_depth, 0), dtype=torch.int32, device=device)
+    for b in range(cfg.max_depth):
+        o, d, T, L, alive = shade(arrays, o, d, T, L, alive, prng.fold_all(keys, b), time)
+        counts[b] = alive.sum(dtype=torch.int32)
+    return L, counts
 
 
 def radiance_regen(scene: scenelib.Scene, arrays: scenelib.SceneArrays,

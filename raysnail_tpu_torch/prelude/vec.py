@@ -102,7 +102,11 @@ class Vec3:
         return self.dot(self)
 
     def unit(self, eps: float = 1e-20) -> "Vec3":
-        return self * torch.rsqrt(torch.clamp_min(self.length_squared(), eps))
+        """self / |self|, as self * (1 / sqrt(max(|self|^2, eps))): a
+        correctly rounded square root and division on the CPU and the card
+        alike, where torch.rsqrt is an approximation on the card (it moved
+        the Mandelbulb anchor's rays there)."""
+        return self * torch.reciprocal(torch.sqrt(torch.clamp_min(self.length_squared(), eps)))
 
     def reflect(self, n: "Vec3") -> "Vec3":
         """Mirror reflection about normal n (reference vec3.rs:170-173)."""

@@ -5,9 +5,14 @@ A full frame is one call of the shuffled path-regeneration integrator over
 every pixel and every effective sample (`make_frame_step`), then the color
 transform. The sample-step path (`sample_sums`, `render_sums`) renders a
 given pixel list instead, one lane per pixel through the plain
-regeneration integrator; with the list in 16x8 image-tile order
-(`_tile_grid`), 128 consecutive lanes are one compact packet for the
-traversal kernels. It carries the sparse passes of `render_passes`.
+regeneration integrator, or, with rng="threefry" or path_regen="never",
+through the per-sample scan integrator; with the list in 16x8 image-tile
+order (`_tile_grid`), 128 consecutive lanes are one compact packet for the
+traversal kernels and 32 consecutive lanes neighbouring rays of the
+Mandelbulb's march. It carries the sparse passes of `render_passes`, and
+the whole frame where the frame step does not apply: as in the JAX
+package, that is a scene with a Mandelbulb (the shuffle would scatter a
+warp's rays over the image), the threefry RNG and path_regen="never".
 
 Adaptive passes: the reference computes a 5x5 noise metric and a redo map,
 but its RedoController clones the map BEFORE the pass loop and never sees
@@ -28,7 +33,7 @@ import torch
 
 from raysnail_tpu_torch import integrator
 from raysnail_tpu_torch import scene as scenelib
-from raysnail_tpu_torch.camera import Camera
+from raysnail_tpu_torch.camera import Camera, generate_rays
 from raysnail_tpu_torch.config import RenderConfig
 from raysnail_tpu_torch.prelude import color as colorlib
 from raysnail_tpu_torch.prelude import rng as prng
@@ -41,29 +46,51 @@ def _check(cfg: RenderConfig):
         raise NotImplementedError("not ported yet: " + "; ".join(problems))
 
 
+def _backend(cfg: RenderConfig) -> str:
+    return "fast" if cfg.rng == "auto" else cfg.rng
+
+
 def sample_sums(scene: scenelib.Scene, cfg: RenderConfig, arrays: scenelib.SceneArrays,
                 camera: Camera, seed: int, sample_ids, px, py) -> Vec3:
     """Radiance sums over the given stratification cells for the given flat
     pixel coordinates -> (P,) Vec3.
 
-    sample_ids must be a contiguous ascending range: the regeneration
-    integrator consumes it as [ids[0], ids[0] + len). The JAX package reads
-    any other id set silently as that range; here it is an error. Fast RNG
-    only: per-ray threefry keys are ROADMAP M18, and `_check` raises for
-    them."""
+    With the fast RNG and path regeneration on, one lane per pixel runs the
+    regeneration integrator, which consumes sample_ids as [ids[0], ids[0] +
+    len): they must be a contiguous ascending range (the JAX package reads
+    any other id set silently as that range; here it is an error).
+    Otherwise each sample id in turn runs the scan integrator
+    (`integrator.radiance`) and the sums accumulate in id order, as the JAX
+    package's scan does: with the fast RNG on fold_all(streams, sid), with
+    threefry on per-ray keys fold_in(fold_in(key(seed), sid), pixel)."""
     _check(cfg)
     ids = np.asarray(sample_ids, np.int64).ravel()
-    if ids.size and not np.array_equal(ids, np.arange(ids[0], ids[0] + ids.size)):
-        raise ValueError("sample_sums: sample_ids must be a contiguous ascending range, got "
-                         f"{ids.tolist()}")
     device = scene.device
     px = torch.as_tensor(px, dtype=cfg.dtype, device=device)
     py = torch.as_tensor(py, dtype=cfg.dtype, device=device)
     pixel_ids = py.to(torch.int64) * cfg.width + px.to(torch.int64)
-    keys0 = prng.fast_streams(seed, pixel_ids)
-    sums, _ = integrator.radiance_regen(
-        scene, arrays, cfg, camera, px, py, keys0, int(ids[0]) if ids.size else 0,
-        int(ids.size))
+    backend = _backend(cfg)
+    keys0 = prng.fast_streams(seed, pixel_ids) if backend == "fast" else None
+    if backend == "fast" and cfg.path_regen != "never":
+        if ids.size and not np.array_equal(ids, np.arange(ids[0], ids[0] + ids.size)):
+            raise ValueError("sample_sums: sample_ids must be a contiguous ascending range, "
+                             f"got {ids.tolist()}")
+        sums, _ = integrator.radiance_regen(
+            scene, arrays, cfg, camera, px, py, keys0, int(ids[0]) if ids.size else 0,
+            int(ids.size))
+        return sums
+
+    sqrt_spp = cfg.sqrt_spp
+    sums = Vec3.zeros(px.shape, cfg.dtype, device)
+    for sid in ids.tolist():
+        if backend == "fast":
+            keys = prng.fold_all(keys0, sid)
+        else:
+            keys = prng.per_ray_keys(prng.fold(prng.key(seed, device), sid), pixel_ids)
+        ray = generate_rays(camera, px, py, torch.full_like(px, sid % sqrt_spp),
+                            torch.full_like(py, sid // sqrt_spp), sqrt_spp, cfg.width,
+                            cfg.height, keys)
+        sums = sums + integrator.radiance(scene, arrays, cfg, ray, keys)
     return sums
 
 
@@ -81,8 +108,14 @@ def make_sample_step(scene: scenelib.Scene, cfg: RenderConfig):
 def make_frame_step(scene: scenelib.Scene, cfg: RenderConfig):
     """FULL-FRAME step through the shuffled path-regeneration integrator:
     step(arrays, camera, seed) -> ((W*H,) Vec3 radiance sums in row-major
-    pixel order, iteration count)."""
+    pixel order, iteration count). None where the shuffle does not apply,
+    as in the JAX package: the threefry RNG, path_regen="never", or a scene
+    with a Mandelbulb (the march wants a warp's rays to be neighbours,
+    which the cross-pixel shuffle undoes). Callers then take the
+    sample-step path in tile order."""
     _check(cfg)
+    if _backend(cfg) != "fast" or cfg.path_regen == "never" or scene.mandelbulbs:
+        return None
 
     def step(arrays: scenelib.SceneArrays, camera: Camera, seed: int):
         return integrator.radiance_regen_shuffle(scene, arrays, cfg, camera, seed,
@@ -155,10 +188,16 @@ def _to_image(accum: Vec3, cfg: RenderConfig) -> np.ndarray:
 
 def render(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
            seed: int = 0, arrays=None) -> np.ndarray:
-    """Single-pass full frame -> (H, W, 3) float32 display image (numpy)."""
-    accum, _ = make_frame_step(scene, cfg)(
-        arrays if arrays is not None else scene.arrays, camera, seed)
-    return _to_image(accum, cfg).reshape(cfg.height, cfg.width, 3)
+    """Single-pass full frame -> (H, W, 3) float32 display image (numpy):
+    the frame step, or where it does not apply the sample-step path over
+    every pixel in tile order."""
+    frame = make_frame_step(scene, cfg)
+    if frame is not None:
+        accum, _ = frame(arrays if arrays is not None else scene.arrays, camera, seed)
+        return _to_image(accum, cfg).reshape(cfg.height, cfg.width, 3)
+    px, py, inv = _tile_grid(cfg)
+    accum = render_sums(scene, camera, cfg, seed, px, py, arrays=arrays)
+    return _to_image(accum, cfg)[inv].reshape(cfg.height, cfg.width, 3)
 
 
 # -- multi-pass adaptive oversampling ---------------------------------------
@@ -201,7 +240,7 @@ def render_passes(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
                   seed: int = 0, arrays=None,
                   progress: Optional[Callable] = None) -> np.ndarray:
     """Multi-pass render with adaptive oversampling (raysnail.rs:379-427):
-    the first pass is the full frame step; pass k re-renders the pixels whose
+    the first pass is `render`'s full frame; pass k re-renders the pixels whose
     noise reaches cfg.noise_threshold, in tile order through the sample
     step, with seed + k, and running-averages display colors
     (old*k + new)/(k+1). `progress(done, total, img)` is called after each

@@ -16,9 +16,10 @@ RAYSNAIL_MESH_SOLVER=mxu), equal to the JAX compile's arrays.
 
 CSG objects lower to static trees of `geometry.csg` nodes and constant
 media to `geometry.media` nodes, their transforms pushed down to the
-leaves, as the JAX package lowers them (`_leaf_of`, `_lower_csg`). The
-Mandelbulb is not ported yet: it raises NotImplementedError at compile,
-naming its ROADMAP item.
+leaves, as the JAX package lowers them (`_leaf_of`, `_lower_csg`). A
+Mandelbulb compiles to a `geometry.mandelbulb.MandelbulbNode` (its material
+only: the distance field sits at the origin and, as in the JAX package,
+ignores a transform), which `intersect` marches after the media.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from raysnail_tpu_torch.config import entry_device
 from raysnail_tpu_torch.accel.bvh import build_bvh, coarse_cut, relinearize_octants
 from raysnail_tpu_torch.geometry import boxes, csg, quadrics, rects, spheres, triangles
 from raysnail_tpu_torch.geometry import media as medialib
+from raysnail_tpu_torch.geometry.mandelbulb import MandelbulbNode
 from raysnail_tpu_torch.geometry import transforms as tf
 from raysnail_tpu_torch.geometry.hit import Hit, combine_hits, miss
 from raysnail_tpu_torch.ops.bvh_traverse import COARSE_MAX, LANES, MXU_LANES, NF
@@ -55,10 +57,6 @@ BRUTE_FORCE_MAX = 32768    # meshes up to this many triangles: dense sweep on th
 # compile has 8 orders where the JAX package's has one: the results differ
 # only in the order leaves are visited, i.e. in which of two tied hits wins.
 OCTANT_CAP = 32768
-
-_NOT_PORTED = {
-    ir.Mandelbulb: "the Mandelbulb (ROADMAP M14)",
-}
 
 
 class Background(NamedTuple):
@@ -105,6 +103,7 @@ class Scene:
     device: torch.device
     csg_trees: tuple = ()     # geometry.csg trees, in compile order
     media: tuple = ()         # geometry.media.MediumNode, in compile order
+    mandelbulbs: tuple = ()   # geometry.mandelbulb.MandelbulbNode, in compile order
     # csg.group_trees(csg_trees): the trees of one structure stacked
     csg_groups: tuple = dataclasses.field(init=False, repr=False, compare=False)
 
@@ -126,14 +125,15 @@ class Routes(NamedTuple):
 def intersect(scene: Scene, arrays: SceneArrays, ray, t_min, t_max, key=None,
               routes: Routes = Routes(), active=None) -> Hit:
     """Closest hit across all primitive groups, in the JAX package's order:
-    spheres, boxes, rects, quadrics, triangles, then the CSG trees and the
-    media. `arrays` is passed separately so a caller can render other scene
-    data (e.g. converted from the JAX package) with the same static
-    structure. `key` is the per-ray key batch: only the media draw from it,
+    spheres, boxes, rects, quadrics, triangles, then the CSG trees, the
+    media and the Mandelbulbs. `arrays` is passed separately so a caller can
+    render other scene data (e.g. converted from the JAX package) with the
+    same static structure. `key` is the per-ray key batch: only the media draw from it,
     one uniform per medium, and a scene with media needs it. `active` is the
     integrator's alive mask: on the kernel routes dead lanes admit no BVH
     node, and the box and triangle routes take the best hit so far as their
-    admission cap (t_cap); the trees and media come after, uncapped."""
+    admission cap (t_cap); the trees and media come after, uncapped, and a
+    Mandelbulb's march skips the dead lanes."""
     d = ray.direction
     best = miss(d.x.shape, d.x.dtype, d.x.device)
     if arrays.spheres is not None:
@@ -168,6 +168,8 @@ def intersect(scene: Scene, arrays: SceneArrays, ray, t_min, t_max, key=None,
     if scene.media:
         us = prng.ray_uniforms(prng.fold_all(key, prng.MEDIUM), len(scene.media), d.x.dtype)
         best = combine_hits(best, medialib.intersect_media(scene.media, ray, t_min, t_max, us))
+    for bulb in scene.mandelbulbs:
+        best = combine_hits(best, bulb.hit(ray, t_min, t_max, active=active))
     return best
 
 
@@ -332,14 +334,11 @@ class _Tables:
 def _compile(builder: SceneBuilder, dtype, device: torch.device, mesh_solver=None) -> Scene:
     tables = _Tables()
     sph, box_list, rect_list, quad_list, mesh_list = [], [], [], [], []
-    csg_trees, media_nodes = [], []
+    csg_trees, media_nodes, bulbs = [], [], []
     moving = False
     lower = dict(tables=tables, dtype=dtype, device=device, mesh_solver=mesh_solver)
 
     for obj in builder.objects:
-        for kind, what in _NOT_PORTED.items():
-            if isinstance(obj, kind):
-                raise NotImplementedError(f"{what} are not ported yet")
         m = ir.unmat4(obj.transform) if getattr(obj, "transform", None) else None
         if isinstance(obj, ir.Sphere):
             mat = tables.material(obj.material)
@@ -375,6 +374,8 @@ def _compile(builder: SceneBuilder, dtype, device: torch.device, mesh_solver=Non
             media_nodes.append(medialib.MediumNode(
                 boundary=leaf, mat_id=mat,
                 neg_inv_density=torch.tensor(-1.0 / obj.density, dtype=dtype, device=device)))
+        elif isinstance(obj, ir.Mandelbulb):
+            bulbs.append(MandelbulbNode(mat_id=tables.material(obj.material)))
         else:
             raise TypeError(f"unknown object {obj!r}")
 
@@ -526,7 +527,7 @@ def _compile(builder: SceneBuilder, dtype, device: torch.device, mesh_solver=Non
         tri_brute=tri_group is not None and tri_group.mat_id.shape[0] <= BRUTE_FORCE_MAX,
         moving=moving, n_media=len(media_nodes), n_csg=len(csg_trees))
     return Scene(arrays=arrays, static=static, device=device, csg_trees=tuple(csg_trees),
-                 media=tuple(media_nodes))
+                 media=tuple(media_nodes), mandelbulbs=tuple(bulbs))
 
 
 # -- CSG and media lowering ---------------------------------------------------

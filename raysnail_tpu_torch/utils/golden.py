@@ -49,6 +49,24 @@ def mesh_scene(cfg, device, n_seg: int = 60, n_ring: int = 12, mesh_solver=None)
     return b.compile(cfg.dtype, device, mesh_solver=mesh_solver), cam
 
 
+def mandelbulb_scene(cfg, device):
+    """The JAX package's Mandelbulb scene (its `mandelbulb` anchor and its
+    bench's mandelbulb-passes4 cell): the bulb in BlinnPhong under a sphere
+    light, no ground -> (Scene, Camera) for cfg's size on `device`."""
+    from raysnail_tpu_torch import ir
+    from raysnail_tpu_torch.camera import build_camera
+    from raysnail_tpu_torch.scene import SceneBuilder
+
+    b = SceneBuilder()
+    b.add(ir.Mandelbulb(material=ir.BlinnPhong(0.3, 60.0, ir.Constant((0.8, 0.75, 0.6)))))
+    b.add(ir.Sphere((3, 5, 3), 1.0, ir.DiffuseLight(ir.Constant((1.0, 0.95, 0.9)), 6.0)),
+          light=True)
+    b.set_background((0.2, 0.25, 0.35), (0.5, 0.6, 0.8))
+    cam = build_camera(look_from=(2.2, 1.4, 2.2), look_at=(0, 0, 0), fov=45,
+                       width=cfg.width, height=cfg.height, device=device)
+    return b.compile(cfg.dtype, device), cam
+
+
 def golden_configs(device):
     """name -> thunk returning (scene, camera, cfg, seed) on `device`, for
     the anchors the port renders."""
@@ -102,6 +120,13 @@ def golden_configs(device):
         return (*mesh_scene(cfg, device), cfg, 7)
 
     out["mesh"] = mesh_entry
+
+    def bulb_entry():
+        # the Mandelbulb (the march kernel K6 on the card) under a sphere light
+        cfg = RenderConfig(width=80, height=48, samples=4, max_depth=4)
+        return (*mandelbulb_scene(cfg, device), cfg, 7)
+
+    out["mandelbulb"] = bulb_entry
 
     def book1_spherebvh_entry():
         # the book1 balls forced through the BVH kernel's sphere kind

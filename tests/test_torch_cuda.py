@@ -11,7 +11,9 @@ every product and sum as their plain versions' separate elementwise kernels
 do: the sphere sweep's t bit-equal and idx equal; the BVH traversal's t and
 every attribute bit-equal, so the same winner on every ray, ties included.
 That holds for both traversal kernels, and for the packet kernel in every
-kind (tri, tri_mxu, box, sphere), with `stream` and `two_level` on and off.
+kind (tri, tri_mxu, box, sphere), with `stream` and `two_level` on and off;
+and for the Mandelbulb march: t, valid, normal, u, v and the step and
+iteration counts bit-equal.
 """
 
 import numpy as np
@@ -474,3 +476,60 @@ def test_book2_launches_the_box_kernel_and_the_moving_sphere_form(cuda_device):
     assert smt.sphere_min_t.moving_launches >= iterations
     res = golden.anchor_drift("book2", golden.load_golden(), "cuda")
     assert res["dmean"] <= golden.MEAN_ATOL, res
+
+
+def bulb_rays(seed, n, device, inside=False):
+    """Seeded rays for the Mandelbulb march: from a shell of radius 2-4 aimed
+    at points near the bulb, or (inside=True) from points inside the
+    bounding sphere in random directions; a quarter of the lanes dead."""
+    rng = np.random.default_rng(seed)
+    if inside:
+        o = rng.uniform(-1.2, 1.2, (n, 3))
+        d = rng.standard_normal((n, 3))
+    else:
+        o = rng.standard_normal((n, 3))
+        o *= rng.uniform(2.0, 4.0, (n, 1)) / np.linalg.norm(o, axis=1, keepdims=True)
+        d = rng.uniform(-0.8, 0.8, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    active = rng.random(n) >= 0.25
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return dev(o.T.astype(np.float32)), dev(d.T.astype(np.float32)), dev(active)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,inside", [(1, False), (33, False), (100_003, False),
+                                      (65_536, True)],
+                         ids=["one", "ragged-33", "shell-100003", "inside-65536"])
+def test_mandelbulb_march_matches_plain(cuda_device, n, inside):
+    """K6 against its plain version on the card, bit for bit in t, valid,
+    normal, u, v and in the step and iteration counts, with dead lanes."""
+    from raysnail_tpu_torch.ops import mandelbulb_march as mm
+
+    o, d, active = bulb_rays(11, n, cuda_device, inside)
+    for act in (active, None):
+        before = mm.mandelbulb_march.launches
+        got = mm.mandelbulb_march(o, d, TMIN, TMAX, act, stats=True)
+        assert mm.mandelbulb_march.launches == before + 1
+        want = mm.mandelbulb_march_plain(o, d, TMIN, TMAX, act, stats=True)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("t", "valid", "normal", "u", "v", "counts"), got, want):
+            assert torch.equal(a, b), name
+        if act is not None:
+            assert not bool(got[1][~act].any())
+    if n > 1000:
+        assert int(got[1].sum()) > n // 20
+
+
+@pytest.mark.cuda
+def test_mandelbulb_anchor_holds_on_the_card(cuda_device):
+    """The anchor renders through K6: one launch per shade iteration of the
+    sample-step path."""
+    from raysnail_tpu_torch.ops import mandelbulb_march as mm
+    from raysnail_tpu_torch.utils import golden
+
+    mm.mandelbulb_march.launches = 0
+    golden.check_anchor("mandelbulb", golden.load_golden(), "cuda")
+    assert mm.mandelbulb_march.launches > 0

@@ -237,8 +237,8 @@ def test_sample_sums_refuses_what_it_would_misread():
     px, py = np.zeros(4, np.float32), np.arange(4, dtype=np.float32)
     with pytest.raises(ValueError, match="contiguous"):
         trender.sample_sums(scene, cfg, scene.arrays, cam, 0, [0, 2, 3], px, py)
-    with pytest.raises(NotImplementedError, match="ROADMAP M18"):
-        trender.sample_sums(scene, cfg.replace(rng="threefry"), scene.arrays, cam, 0, [0], px,
+    with pytest.raises(NotImplementedError, match="regen_window"):
+        trender.sample_sums(scene, cfg.replace(regen_window=2), scene.arrays, cam, 0, [0], px,
                             py)
     empty = trender.sample_sums(scene, cfg, scene.arrays, cam, 0, [], px, py)
     assert float(empty.to_array().abs().max()) == 0.0

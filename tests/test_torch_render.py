@@ -102,10 +102,13 @@ def test_frame_step_counts_iterations_and_refuses_unported_settings():
     # at least one shade per cell of the one chunk, at most max_depth per cell
     assert 4 <= iterations <= 4 * 3
     assert sums.x.shape == (16 * 8,)
-    with pytest.raises(NotImplementedError, match="ROADMAP M18"):
-        make_frame_step(scene, cfg.replace(rng="threefry"))
-    with pytest.raises(NotImplementedError, match="ROADMAP M7"):
-        render_passes(scene, camera, cfg.replace(passes=2, path_regen="never"))
+    # the threefry RNG and the scan integrator take the sample-step path
+    assert make_frame_step(scene, cfg.replace(rng="threefry")) is None
+    assert make_frame_step(scene, cfg.replace(path_regen="never")) is None
+    img = render_passes(scene, camera, cfg.replace(passes=2, path_regen="never"))
+    assert img.shape == (8, 16, 3) and np.isfinite(img).all()
+    with pytest.raises(NotImplementedError, match="regen_window"):
+        make_frame_step(scene, cfg.replace(regen_window=2))
     with pytest.raises(NotImplementedError, match="passes=0"):
         render_passes(scene, camera, cfg.replace(passes=0))
     assert render_passes(scene, camera, cfg.replace(passes=2)).shape == (8, 16, 3)

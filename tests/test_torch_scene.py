@@ -35,7 +35,7 @@ SDL_FILES = sorted(glob.glob(os.path.join(REPO, "sdl", "*.sdl")))
 
 # the framework-free host modules the port carries as copies
 COPIES = ["ir.py", "geometry/transforms.py", "sdl/parser.py", "accel/bvh.py",
-          "accel/native/bvh_builder.cpp", "io/obj.py", "scenes/meshes.py"]
+          "accel/native/bvh_builder.cpp", "io/obj.py", "io/preview.py", "scenes/meshes.py"]
 
 
 @pytest.mark.parametrize("path", COPIES)
@@ -145,11 +145,18 @@ def test_compile_equals_converted_jax_compile(source):
         assert getattr(tscene.static, name) == getattr(jscene.static, name), name
 
 
-@pytest.mark.parametrize("obj", [tir.Mandelbulb()], ids=["mandelbulb"])
-def test_unported_features_raise_with_their_roadmap_item(obj):
-    b = TBuilder().add(obj)
-    with pytest.raises(NotImplementedError, match="ROADMAP M"):
-        b.compile(device="cpu")
+@pytest.mark.parametrize("setting", [{"regen_window": 4}, {"mesh_sort": True}],
+                         ids=["regen_window", "mesh_sort"])
+def test_unported_features_raise_with_their_roadmap_item(setting):
+    """What the port leaves out by decision raises, naming ROADMAP's "Not to
+    port" list. The Mandelbulb, the last primitive compile refused, now
+    compiles to its node."""
+    from raysnail_tpu_torch.render import make_sample_step
+
+    scene = TBuilder().add(tir.Mandelbulb()).compile(device="cpu")
+    assert len(scene.mandelbulbs) == 1 and scene.mandelbulbs[0].mat_id == -1
+    with pytest.raises(NotImplementedError, match="ROADMAP 'Not to port'"):
+        make_sample_step(scene, TConfig(width=8, height=4, samples=1, **setting))
 
 
 @pytest.mark.parametrize("obj", [
