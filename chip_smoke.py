@@ -27,13 +27,17 @@ and exits non-zero if any fails:
               moving form on the moving book 1 frame's primary rays (d) and
               on their bounce rays (e): bit for bit, with the pairs that
               take the root. The Mandelbulb march (K6) on the
-              mandelbulb-passes4 camera's 150,000 primary rays in tile order
-              and on their bounce rays (cosine directions about the hit
+              mandelbulb-passes4 camera's 150,000 primary rays in tile order,
+              on their bounce rays (cosine directions about the hit
               normals from a seeded generator, the rays that missed as dead
-              lanes): t, valid, normal, uv and the step and iteration counts
-              bit for bit; steps per ray, DE iterations per step and each
-              warp's idle share; call, device and plain ms, the bound and
-              the issue floor without FMA.
+              lanes) and on its 600,000 primary rays of 4 samples (more
+              threads than the card holds at once): t, valid, normal, uv and
+              the step and iteration counts bit for bit; steps per ray, DE
+              iterations per step and per ray (max, p99); the chain floor
+              (the 32 slowest rays alone in one launch, and the ns a DE
+              iteration of the longest); each warp's idle share (a warp
+              runs until its slowest ray is done); call, device and plain
+              ms, the bound and the issue floor without FMA.
               Every traversal probe (ray I/O, walk, sweep, walk latency, the
               V0-V8 bisect) against its plain version, on the probes' own
               case knot-9600 and on mesh-200k: integers and min-t bit for
@@ -145,6 +149,8 @@ CSG_FRAMES = (("quadric.sdl", "quadric.sdl", 800, 500, 16, 8, 1),
               ("cornell-smoke", "cornell-smoke", 400, 400, 25, 8, 1))
 # mandelbulb-passes4 (bench.py:240-250, render_passes seed bench.py:76)
 BULB_W, BULB_H, BULB_SPP, BULB_DEPTH, BULB_PASSES, BULB_SEED = 500, 300, 25, 6, 4, 7
+# K6's largest case: that camera's primary rays of 4 samples (600,000)
+BULB_MANY_SAMPLES = 4
 # the scan and threefry frames of example.sdl, and the largest difference of
 # a channel mean from the default frame's: the fast scan traces the default
 # frame's paths, threefry draws other numbers (CPU reading at 96x64@4spp:
@@ -323,18 +329,43 @@ def moving_bounce_rays(args, motion, t, idx, gen):
 
 def warp_idle(work: torch.Tensor) -> float:
     """Idle share of the lanes of 32-ray warps (consecutive rays) that each
-    run until their slowest ray is done: 1 - sum(work) / (32 * max per warp)."""
+    run until their slowest ray is done: 1 - sum(work) / (32 * max per warp).
+    A property of the rays in K6's layout of one ray a thread."""
     n = work.shape[0] // WARP * WARP
     w = work[:n].reshape(-1, WARP).to(torch.float64)
     busy = float(w.amax(dim=1).sum()) * WARP
     return 1.0 - float(w.sum()) / busy if busy else 0.0
 
 
+CHAIN_RAYS = 32  # K6's chain floor: the rays with the most DE iterations, alone in one launch
+
+
+def chain_floor(o3, d3, active, t_min, t_max, iterations: torch.Tensor, got) -> dict:
+    """K6 on the CHAIN_RAYS rays with the most DE iterations (march plus
+    normal), alone in one launch: their device ms (device_ms) and the ns a
+    DE iteration of the longest of them. Their outputs must be those of
+    the whole call."""
+    from raysnail_tpu_torch.ops import mandelbulb_march as mm
+
+    idx = torch.topk(iterations, min(CHAIN_RAYS, iterations.numel())).indices
+    o, d = o3[:, idx].contiguous(), d3[:, idx].contiguous()
+    act = None if active is None else active[idx].contiguous()
+    call = lambda: mm.mandelbulb_march(o, d, t_min, t_max, act)
+    with counts_kept():
+        alone = call()
+    if not all(torch.equal(a, b.index_select(-1, idx)) for a, b in zip(alone, got)):
+        raise AssertionError("mandelbulb_march: the slowest rays alone differ from the call")
+    ms = device_ms(call)
+    longest = int(iterations.max())
+    return {"chain_floor_ms": ms, "chain_ns_per_iteration": ms * 1e6 / max(longest, 1)}
+
+
 def check_march_kernel(o3, d3, active, t_min, t_max, label: str) -> dict:
     """K6 against its plain version on the same rays: t, valid, normal, u, v
     and the step and iteration counts bit for bit. Times the kernel per call
-    (CUDA events around the call, and device_ms), and the plain version
-    once. -> the record's numbers and the outputs."""
+    (CUDA events around the call, and device_ms), the plain version once,
+    and the chain floor; reads the per-ray DE iterations (max, p99). -> the
+    record's numbers and the outputs."""
     from raysnail_tpu_torch.ops import mandelbulb_march as mm
 
     call = lambda: mm.mandelbulb_march(o3, d3, t_min, t_max, active)
@@ -356,44 +387,59 @@ def check_march_kernel(o3, d3, active, t_min, t_max, label: str) -> dict:
     steps, march_iters, normal_iters = counts
     n = t.shape[0]
     live = steps > 0
+    iterations = march_iters + normal_iters
     ops = mm.operations(counts, valid)
     out = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
            **bound(n * mm.RAY_BYTES, ops), "issue_floor_ms": ops / FP32_NO_FMA * 1e3,
+           **chain_floor(o3, d3, active, t_min, t_max, iterations, got[:5]),
            "rays": n, "hits": int(valid.sum()), "marched": int(live.sum()),
            "steps_mean": float(steps[live].float().mean()) if bool(live.any()) else 0.0,
            "steps_max": int(steps.max()),
            "iterations_per_step": float(march_iters.sum()) / max(int(steps.sum()), 1),
+           "iterations_max": int(iterations.max()),
+           "iterations_p99": float(torch.quantile(iterations[live].double(), 0.99))
+           if bool(live.any()) else 0.0,
            "warp_idle_steps": warp_idle(steps),
-           "warp_idle_iterations": warp_idle(march_iters + normal_iters)}
+           "warp_idle_iterations": warp_idle(iterations)}
     phase("kernels", f"mandelbulb_march {label}: N={n}, {out['marched']} marched, "
           f"{out['hits']} hits; outputs that differ from the plain version "
           f"{differ or 'none'} (max|d|={err!r}); steps per marched ray mean "
           f"{out['steps_mean']!r}, max {out['steps_max']}; DE iterations per step "
-          f"{out['iterations_per_step']!r}; warp idle share {out['warp_idle_steps']!r} by "
-          f"steps, {out['warp_idle_iterations']!r} by DE iterations; kernel {ms!r} ms a call "
+          f"{out['iterations_per_step']!r}; DE iterations a ray (march + normal) max "
+          f"{out['iterations_max']}, p99 {out['iterations_p99']!r}; kernel {ms!r} ms a call "
           f"(median of {TIMING_RUNS}), {dev_ms!r} ms device time a call, plain {plain_ms!r} "
-          f"ms (one call); bound {out['bound_ms']!r} ms by {out['bound_by']} ({ops} "
-          f"operations), issue floor without FMA {out['issue_floor_ms']!r} ms")
+          f"ms (one call); chain floor ({CHAIN_RAYS} slowest rays alone) "
+          f"{out['chain_floor_ms']!r} ms, {out['chain_ns_per_iteration']!r} ns a DE iteration "
+          f"of the longest; bound "
+          f"{out['bound_ms']!r} ms by {out['bound_by']} ({ops} operations), issue floor "
+          f"without FMA {out['issue_floor_ms']!r} ms; warp idle share "
+          f"{out['warp_idle_steps']!r} by steps, {out['warp_idle_iterations']!r} by DE "
+          f"iterations")
     if differ:
         raise AssertionError(f"mandelbulb_march {label}: the kernel disagrees with the plain "
                              f"version in {differ}")
     return {**out, "outputs": got}
 
 
-def bulb_primary_rays(camera, cfg, device):
-    """The mandelbulb-passes4 frame's primary rays of sample 0 in 16x8
-    image-tile order, as its sample-step path makes them -> (3, N) origin
-    and direction."""
+def bulb_primary_rays(camera, cfg, device, samples: int = 1):
+    """The mandelbulb-passes4 frame's primary rays of samples 0..samples-1
+    in 16x8 image-tile order, as its sample-step path makes them, one
+    sample after another -> (3, N) origin and direction."""
     from raysnail_tpu_torch.camera import generate_rays
     from raysnail_tpu_torch.prelude import rng as prng
     from raysnail_tpu_torch.render import _tile_grid
 
     px, py, _ = _tile_grid(cfg)
     px, py = torch.as_tensor(px, device=device), torch.as_tensor(py, device=device)
-    keys = prng.fold_all(prng.fast_streams(BULB_SEED, py.long() * cfg.width + px.long()), 0)
-    zero = torch.zeros_like(px)
-    ray = generate_rays(camera, px, py, zero, zero, cfg.sqrt_spp, cfg.width, cfg.height, keys)
-    return torch.stack(tuple(ray.origin)), torch.stack(tuple(ray.direction))
+    streams = prng.fast_streams(BULB_SEED, py.long() * cfg.width + px.long())
+    o, d = [], []
+    for sid in range(samples):
+        ray = generate_rays(camera, px, py, torch.full_like(px, sid % cfg.sqrt_spp),
+                            torch.full_like(py, sid // cfg.sqrt_spp), cfg.sqrt_spp, cfg.width,
+                            cfg.height, prng.fold_all(streams, sid))
+        o.append(torch.stack(tuple(ray.origin)))
+        d.append(torch.stack(tuple(ray.direction)))
+    return torch.cat(o, 1).contiguous(), torch.cat(d, 1).contiguous()
 
 
 def bulb_bounce_rays(o3, d3, out, gen):
@@ -864,6 +910,11 @@ def run(device: torch.device, card: str, profile: bool) -> list:
                                     "passes4 bounce rays (dead lanes where the primary missed)")
     if res_bulb["hits"] < BULB_W * BULB_H // 10 or res_bulb_b["marched"] == 0:
         raise AssertionError("the passes4 rays barely meet the bulb")
+    # more rays than the card holds threads at once
+    o_m, d_m = bulb_primary_rays(bulb_cam, bcfg, device, BULB_MANY_SAMPLES)
+    res_bulb_m = check_march_kernel(o_m, d_m, None, bcfg.t_min, bcfg.t_max,
+                                    f"passes4 primary rays of {BULB_MANY_SAMPLES} samples, "
+                                    f"{o_m.shape[1]} in tile order")
 
     # bvh_traverse, kind "tri": the mesh-200k scene (its host compile is timed)
     mcfg = RenderConfig(width=MESH_W, height=MESH_H, samples=MESH_SPP, max_depth=MESH_DEPTH)
@@ -1366,15 +1417,18 @@ def run(device: torch.device, card: str, profile: bool) -> list:
          "bounce_ms": res_e["ms"], "bounce_bound_ms": res_e["bound_ms"],
          "bounce_issue_floor_ms": res_e["issue_floor_ms"]}]
     bulb_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "issue_floor_ms",
-                 "steps_mean", "steps_max", "iterations_per_step", "warp_idle_steps",
-                 "warp_idle_iterations")
+                 "chain_floor_ms", "chain_ns_per_iteration", "steps_mean", "steps_max",
+                 "iterations_per_step", "iterations_max", "iterations_p99",
+                 "warp_idle_steps", "warp_idle_iterations")
     records.append({"name": "mandelbulb_march", "route": "cuda",
                     "source": src + "mandelbulb_march.cu",
                     "replaces": "raysnail_tpu/geometry/mandelbulb.py:159",
                     "launches": bulb_launches["mandelbulb_march"],
-                    "max_abs_err": max(res_bulb["max_abs_err"], res_bulb_b["max_abs_err"]),
+                    "max_abs_err": max(r["max_abs_err"] for r in (res_bulb, res_bulb_b,
+                                                                  res_bulb_m)),
                     **{k: res_bulb[k] for k in bulb_keys},
-                    **{f"bounce_{k}": res_bulb_b[k] for k in bulb_keys if k != "bound_by"}})
+                    **{f"bounce_{k}": res_bulb_b[k] for k in bulb_keys if k != "bound_by"},
+                    **{f"samples4_{k}": res_bulb_m[k] for k in bulb_keys if k != "bound_by"}})
     per_ray = {"tri": (res_tri, tri_launches),
                "box": (res_box, book2_launches["bvh_traverse/box"]),
                "sphere": (res_sph, anchor_launches["book1-spherebvh"]["bvh_traverse/sphere"])}

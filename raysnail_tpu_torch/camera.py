@@ -15,7 +15,7 @@ import torch
 from raysnail_tpu_torch.config import entry_device
 from raysnail_tpu_torch.prelude import rng as prng
 from raysnail_tpu_torch.prelude import sampling
-from raysnail_tpu_torch.prelude.vec import Vec3
+from raysnail_tpu_torch.prelude.vec import Vec3, div_const
 
 
 class Ray(NamedTuple):
@@ -108,17 +108,14 @@ def pixel_uv(px, py, s_i, s_j, sqrt_spp: int, width: int, height: int, keys):
     """Stratified subpixel -> viewport uv with y flip
     (painter.rs:131-139, 165-179).
 
-    The divisions by the image size take a tensor divisor: PyTorch's CUDA
-    division by a Python number multiplies by its reciprocal, which moves u
-    and v by an ulp against the CPU and the JAX package, and a ray that an
-    ulp moves can take another path through a chaotic surface (the
-    Mandelbulb's anchor missed its thumbnail on the card by that alone)."""
+    The divisions by the image size take a tensor divisor
+    (`prelude.vec.div_const`)."""
     j1, j2 = prng.ray_uniforms(prng.fold_all(keys, prng.RAYGEN), 2, px.dtype)
     inv_s = 1.0 / sqrt_spp
     xo = px + (s_i + j1) * inv_s
     yo = py + (s_j + j2) * inv_s
-    u = xo / torch.full_like(xo, width)
-    v = (height - 1.0 - yo) / torch.full_like(yo, height)
+    u = div_const(xo, width)
+    v = div_const(height - 1.0 - yo, height)
     return u, v
 
 

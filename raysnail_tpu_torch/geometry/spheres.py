@@ -27,7 +27,7 @@ from raysnail_tpu_torch.geometry.hit import BIG, Hit
 from raysnail_tpu_torch.ops.bvh_traverse import bvh_traverse, lane_caps
 from raysnail_tpu_torch.ops.sphere_min_t import sphere_min_t
 from raysnail_tpu_torch.prelude.sampling import PI
-from raysnail_tpu_torch.prelude.vec import Vec3
+from raysnail_tpu_torch.prelude.vec import Vec3, div_const
 
 
 class SphereGroup(NamedTuple):
@@ -129,11 +129,12 @@ def _intersect_bvh(group: SphereGroup, ray, t_min, t_max, need_uv: bool, active,
 
 
 def sphere_uv(offset: Vec3):
-    """Spherical uv of a point relative to the center (sphere.rs:64-71)."""
+    """Spherical uv of a point relative to the center (sphere.rs:64-71).
+    The divisions take a tensor divisor (`prelude.vec.div_const`)."""
     p = offset.unit()
     phi = torch.atan2(-p.z, p.x)
     theta = torch.asin(torch.clamp(p.y, -1.0, 1.0))
-    return phi / (2.0 * PI) + 0.5, theta / PI + 0.5
+    return div_const(phi, 2.0 * PI) + 0.5, div_const(theta, PI) + 0.5
 
 
 # -- CSG and media support (one sphere, scalar params broadcast over rays) ----

@@ -21,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from raysnail_tpu_torch.prelude import sampling
-from raysnail_tpu_torch.prelude.vec import Vec3
+from raysnail_tpu_torch.prelude.vec import Vec3, div_const
 
 SPHERE = 0
 RECT_XZ = 1
@@ -123,4 +123,4 @@ def pdf_value(lights: LightArrays, origin: Vec3, direction: Vec3, kinds: frozens
                                  zero)
             p_i = torch.where(lights.kind[i] == RECT_XZ, p_rect, p_i)
         total = total + p_i
-    return total / n_lights
+    return div_const(total, n_lights)

@@ -25,7 +25,7 @@ import torch
 
 from raysnail_tpu_torch.prelude import sampling
 from raysnail_tpu_torch.prelude.sampling import INV_PI, PI
-from raysnail_tpu_torch.prelude.vec import Vec3
+from raysnail_tpu_torch.prelude.vec import Vec3, div_const
 
 LAMBERTIAN = 0
 METAL = 1
@@ -148,7 +148,7 @@ def bsdf_sample(rows: Rows, ray_dir: Vec3, normal: Vec3, uniforms, kinds: frozen
 
 
 def _lobe(e, cos_r):
-    return (e + 1.0) / (2.0 * PI) * torch.pow(torch.clamp_min(cos_r, 1e-12), e)
+    return div_const(e + 1.0, 2.0 * PI) * torch.pow(torch.clamp_min(cos_r, 1e-12), e)
 
 
 def bsdf_pdf_value(rows: Rows, ray_dir: Vec3, normal: Vec3, direction: Vec3,

@@ -26,9 +26,8 @@ logf, atan2f and asinf as PyTorch's CUDA kernels do), so on the
 card they agree bit for bit. `mandelbulb_march.launches` counts kernel
 launches only.
 
-Division by a constant takes a tensor divisor (`torch.full_like`): PyTorch's
-CUDA division by a Python number multiplies by its reciprocal instead, which
-neither the CPU, the JAX package nor the kernel does.
+Division by a constant takes a tensor divisor (`prelude.vec.div_const`), so
+the plain version rounds it as the CPU, the JAX package and the kernel do.
 """
 
 from __future__ import annotations
@@ -40,6 +39,7 @@ import torch
 from raysnail_tpu_torch.geometry.hit import BIG
 from raysnail_tpu_torch.ops import _nvcc
 from raysnail_tpu_torch.prelude.sampling import PI
+from raysnail_tpu_torch.prelude.vec import div_const
 
 POWER = 8.0
 BAILOUT = 8.0
@@ -226,8 +226,8 @@ def mandelbulb_march_plain(origin, direction, t_min, t_max, active=None, stats=F
         qx, qy, qz = _unit(px, py, pz)
         phi = torch.atan2(-qz, qx)
         theta = torch.asin(torch.clamp(qy, -1.0, 1.0))
-        u[idx] = phi / torch.full_like(phi, 2.0 * PI) + 0.5
-        v[idx] = theta / torch.full_like(theta, PI) + 0.5
+        u[idx] = div_const(phi, 2.0 * PI) + 0.5
+        v[idx] = div_const(theta, PI) + 0.5
     out = (t, valid, torch.stack([nx, ny, nz]), u, v)
     return out + (counts,) if stats else out
 

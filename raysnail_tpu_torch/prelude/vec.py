@@ -12,6 +12,16 @@ from typing import Sequence
 import torch
 
 
+def div_const(a: torch.Tensor, c: float) -> torch.Tensor:
+    """a / c for a Python number c, rounded as one IEEE division on every
+    device: PyTorch's CUDA division by a Python number multiplies by its
+    reciprocal instead, which can move the quotient by an ulp against the
+    CPU, the JAX package and the kernels, and an ulp can send a ray along
+    another path (the Mandelbulb's anchor missed its thumbnail on the card
+    by the camera's division alone). So the divisor is a tensor."""
+    return a / torch.full_like(a, c)
+
+
 class Vec3:
     """A batch of 3-vectors (or points, or RGB colors) in SoA form."""
 
@@ -81,6 +91,8 @@ class Vec3:
     __rmul__ = __mul__
 
     def __truediv__(self, o):
+        if isinstance(o, (int, float)):
+            return Vec3(div_const(self.x, o), div_const(self.y, o), div_const(self.z, o))
         o = self._coerce(o)
         return Vec3(self.x / o.x, self.y / o.y, self.z / o.z)
 
@@ -102,10 +114,11 @@ class Vec3:
         return self.dot(self)
 
     def unit(self, eps: float = 1e-20) -> "Vec3":
-        """self / |self|, as self * (1 / sqrt(max(|self|^2, eps))): a
-        correctly rounded square root and division on the CPU and the card
-        alike, where torch.rsqrt is an approximation on the card (it moved
-        the Mandelbulb anchor's rays there)."""
+        """self / |self|, as self * (1 / sqrt(max(|self|^2, eps))): on the
+        card a correctly rounded square root and division, as the kernels
+        take them, where torch.rsqrt is an approximation (it moved the
+        Mandelbulb anchor's rays there). The CPU's torch.sqrt is not always
+        correctly rounded."""
         return self * torch.reciprocal(torch.sqrt(torch.clamp_min(self.length_squared(), eps)))
 
     def reflect(self, n: "Vec3") -> "Vec3":

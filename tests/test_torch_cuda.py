@@ -501,11 +501,13 @@ def bulb_rays(seed, n, device, inside=False):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,inside", [(1, False), (33, False), (100_003, False),
-                                      (65_536, True)],
-                         ids=["one", "ragged-33", "shell-100003", "inside-65536"])
+                                      (65_536, True), (600_000, False)],
+                         ids=["one", "ragged-33", "shell-100003", "inside-65536",
+                              "shell-600000"])
 def test_mandelbulb_march_matches_plain(cuda_device, n, inside):
     """K6 against its plain version on the card, bit for bit in t, valid,
-    normal, u, v and in the step and iteration counts, with dead lanes."""
+    normal, u, v and in the step and iteration counts, with dead lanes; at
+    600,000 rays more threads than the card holds at once."""
     from raysnail_tpu_torch.ops import mandelbulb_march as mm
 
     o, d, active = bulb_rays(11, n, cuda_device, inside)
@@ -533,3 +535,113 @@ def test_mandelbulb_anchor_holds_on_the_card(cuda_device):
     mm.mandelbulb_march.launches = 0
     golden.check_anchor("mandelbulb", golden.load_golden(), "cuda")
     assert mm.mandelbulb_march.launches > 0
+
+
+def _division_calls(name, device, monkeypatch):
+    """Run one function that divides by a constant on seeded inputs on
+    `device`, recording each call of `div_const` in the module that makes
+    it -> [(dividend, constant, quotient)], tensors moved to the CPU."""
+    from raysnail_tpu_torch import lights, materials
+    from raysnail_tpu_torch.geometry import spheres
+    from raysnail_tpu_torch.prelude import vec as vec_mod
+    from raysnail_tpu_torch.prelude.vec import Vec3
+
+    calls = []
+    rng = np.random.default_rng(17)
+    n = 100_003
+    div_const = vec_mod.div_const
+
+    def recording(a, c):
+        q = div_const(a, c)
+        calls.append((a.cpu(), c, q.cpu()))
+        return q
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+    def vec(a):
+        return Vec3(*(dev(a[:, i]) for i in range(3)))
+
+    module = {"sphere_uv": spheres, "lobe": materials, "light_pdf": lights,
+              "vec_div": vec_mod}[name]
+    monkeypatch.setattr(module, "div_const", recording)
+    if name == "sphere_uv":
+        spheres.sphere_uv(vec(rng.standard_normal((n, 3))))
+    elif name == "lobe":
+        materials._lobe(dev(rng.uniform(1.0, 500.0, n)), dev(rng.uniform(0.0, 1.0, n)))
+    elif name == "light_pdf":
+        kind = torch.from_numpy(np.asarray([lights.SPHERE, lights.RECT_XZ, lights.SPHERE],
+                                           np.int32)).to(device)
+        table = lights.LightArrays(
+            kind=kind, center=vec(np.asarray([[300, 400, 100], [0, 0, 0], [0, 8, -2]])),
+            radius=dev([12, 0, 1.5]), k=dev([0, 5, 0]), a0=dev([0, -1, 0]),
+            a1=dev([0, 2, 0]), b0=dev([0, -3, 0]), b1=dev([0, 1, 0]))
+        origin = vec(rng.uniform(-3, 3, (n, 3)))
+        kinds = frozenset({lights.SPHERE, lights.RECT_XZ})
+        d = lights.sample_proper(table, origin, *(dev(x) for x in rng.random((3, n))), kinds)
+        lights.pdf_value(table, origin, d.unit(), kinds)
+    else:
+        v = vec(rng.standard_normal((n, 3)))
+        for c in (3.0, 7):
+            v / c
+    return calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n_calls", [("sphere_uv", 2), ("lobe", 1), ("light_pdf", 1),
+                                          ("vec_div", 6)])
+def test_divisions_by_constants_round_as_on_the_cpu(cuda_device, monkeypatch, name, n_calls):
+    """Each division of the render path by a Python constant goes through
+    prelude.vec.div_const, whose quotient on the card is the CPU's quotient
+    of the same dividend bit for bit; the same division by a Python number
+    on the card multiplies by the reciprocal and moves some quotients by an
+    ulp. The functions' whole results can differ between the two devices
+    all the same: the CPU's torch.sqrt is not always correctly rounded (an
+    ulp off numpy's on some float32 inputs) and atan2, asin and pow round
+    otherwise on the card, so each division is held on its own dividend."""
+    calls = _division_calls(name, cuda_device, monkeypatch)
+    assert len(calls) == n_calls
+    moved = 0
+    for a, c, q in calls:
+        assert torch.equal(q, a / c), (c, int((q != a / c).sum()))
+        moved += int(((a.to(cuda_device) / c).cpu() != a / c).sum())
+    assert moved > 0
+
+
+@pytest.mark.cuda
+def test_mandelbulb_march_edge_cases_and_the_callers_stream(cuda_device):
+    """Calls back to back, rays along the axes, every lane dead, N = 0,
+    N = 1 and a call on a stream of its own; bit for bit against the plain
+    version each time."""
+    from raysnail_tpu_torch.ops import mandelbulb_march as mm
+
+    def check(o, d, act, stream=None):
+        with torch.cuda.stream(stream):
+            got = mm.mandelbulb_march(o, d, TMIN, TMAX, act, stats=True)
+            want = mm.mandelbulb_march_plain(o, d, TMIN, TMAX, act, stats=True)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("t", "valid", "normal", "u", "v", "counts"), got, want):
+            assert torch.equal(a, b), name
+        return got
+
+    o, d, active = bulb_rays(23, 4_099, cuda_device)
+    for _ in range(3):
+        check(o, d, active)
+    # rays along the axes and a hair off them: the DE meets rho^2 = 0 and
+    # tiny and denormal rho^2 (the square root's scaled branch)
+    axes = []
+    for axis in range(3):
+        for sign in (1.0, -1.0):
+            for off in (0.0, 1e-20, 1e-30, 1e-39, -1e-25):
+                p = [off, 0.0, 0.0] if axis != 0 else [0.0, off, 0.0]
+                p[axis] = 3.0 * sign
+                axes.append(p)
+    ao = torch.tensor(axes, device=cuda_device).T.contiguous()
+    ad = (-ao / ao.norm(dim=0, keepdim=True)).contiguous()
+    assert int(check(ao, ad, None)[1].sum()) > 0
+    assert not bool(check(o, d, torch.zeros_like(active))[1].any())
+    check(o[:, :1].contiguous(), d[:, :1].contiguous(), None)
+    empty = torch.empty((3, 0), device=cuda_device)
+    assert check(empty, empty, None)[0].shape == (0,)
+    check(o, d, active, torch.cuda.Stream())
+    check(o, d, active)
