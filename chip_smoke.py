@@ -7,9 +7,10 @@ It drives `raysnail_tpu_torch` (never the JAX package) through these phases
 and exits non-zero if any fails:
 
   1. device   require CUDA; print the card's name and power limit
-  2. build    build every kernel from csrc/ with nvcc (sphere_min_t.cu,
-              bvh_traverse.cu, bvh_packet.cu, bvh_probes.cu), and the host
-              BVH builder with g++, all started together; the seconds, and
+  2. build    build every kernel from csrc/ with nvcc (sphere_min_t.cu, K1
+              and its backward K1b; bvh_traverse.cu, bvh_packet.cu,
+              bvh_probes.cu, mandelbulb_march.cu), and the host BVH builder
+              with g++, all started together; the seconds, and
               each kernel's registers and spills (-Xptxas -v); the sphere
               kernel's launch shape, occupancy and waves at 400,000 rays
   3. kernels  each kernel against its plain PyTorch version on the card, at
@@ -81,7 +82,30 @@ and exits non-zero if any fails:
               means within SCAN_MEAN_ATOL of the default frame's. Each run
               reads the kernel launch counts it made, and the run prints its
               total seconds.
-  6. profile  (only with --profile, after the phases above) device time per call
+  6. train    the gradient train step (`raysnail_tpu_torch.diff`): (a) K1b,
+              the backward of the sphere sweep (`sphere_min_t_bwd`, the
+              second entry point of csrc/sphere_min_t.cu), bit for bit
+              against its plain version on K1's output for example.sdl's
+              400,000 primary rays x 4 spheres, the static book 1 rays x 478
+              and the moving book 1 rays x 481 (moving form), each with a
+              seeded cotangent: call, device and plain ms and the bound;
+              (b) render_image_diff's gradient on the card against the CPU's
+              (example.sdl and a DiffuseMetal/BlinnPhong "metal" scene at
+              32x20@4spp, depth 4, each leaf within GRAD_RTOL * max|g| +
+              GRAD_ATOL, flipped pixels left out), and tests/test_diff.py's
+              mesh scene: K2 runs, every gradient finite; one Adam step of
+              the metal scene at 400x250@16, depth 8, whose bounce rays' t
+              reaches the gradient through K1b (K1b's main-path launches);
+              (c) bench.py's example-fwd+bwd row, 400x250@16 depth 8,
+              Adam(1e-2), a zero target: a warm-up step, then TRAIN_STEPS
+              timed steps (seconds a step, Mrays/s fwd+bwd, the loss, the
+              peak memory, the launches a step), K1's launches split into
+              pass 1, the cells' forward and their recompute, and a step
+              without remat for its peak memory; (d) the canonical step,
+              800x500@64 depth 8 (one backward pass a cell); (e) the
+              inverse-rendering example, EXAMPLE_STEPS Adam(2e-2) steps at
+              64x48@16 depth 4, whose loss must fall
+  7. profile  (only with --profile, after the phases above) device time per call
               (device_ms: calls queued behind a spin kernel, CUDA events) of
               sphere_min_t on (a), static book 1, (d) and (e); K1's static
               form against K4 (per ray, packet) on random sphere groups of
@@ -156,6 +180,22 @@ BULB_MANY_SAMPLES = 4
 # frame's paths, threefry draws other numbers (CPU reading at 96x64@4spp:
 # 8.9e-4, tests/test_torch_scan.py)
 SCAN_W, SCAN_H, SCAN_SPP, SCAN_MEAN_ATOL = 200, 125, 16, 0.01
+# the gradient train step (phase 6): bench.py's fwd+bwd rows (bench.py:94-141),
+# example-fwd+bwd 400x250@16 and example-fwd+bwd-800x500, depth 8, Adam(1e-2),
+# a zero target; a warm-up step, then TRAIN_STEPS timed steps of the first
+TRAIN_W, TRAIN_H, TRAIN_SPP, TRAIN_STEPS = 400, 250, 16, 3
+TRAIN_DEPTH = 8
+# the card's gradient against the CPU's: render_image_diff's mean at 32x20@4spp,
+# depth 4; each leaf within GRAD_RTOL * max|g_cpu| + GRAD_ATOL, the pixels
+# whose radiance differs beyond FLIP_ATOL (a path flipped by an ulp, at most
+# FLIP_SHARE of them) left out of the scalar on both sides
+GRAD_W, GRAD_H, GRAD_SPP, GRAD_DEPTH = 32, 20, 4, 4
+GRAD_RTOL, GRAD_ATOL, FLIP_ATOL, FLIP_SHARE = 1e-3, 1e-6, 1e-4, 0.01
+EXAMPLE_STEPS = 10  # the inverse-rendering example's steps on the card
+# K1b's FP32 operations per ray that hit (compares, selects and negations
+# included, the division and the square root one each), and the moving
+# center's, counted from csrc/sphere_min_t.cu
+BWD_OPS, BWD_MOVE_OPS = 44, 6
 WARP = 32
 # the card's published peaks (H100 SXM): device memory bytes/s, FP32 FLOP/s
 # outside the tensor cores
@@ -757,9 +797,11 @@ class Counters:
         from raysnail_tpu_torch.ops import sphere_min_t as smt
         self.smt, self.bt, self.bp = smt.sphere_min_t, bt.bvh_traverse, bp
         self.mm = mm.mandelbulb_march
+        self.bwd = smt.sphere_min_t_bwd
 
     def reset(self):
         self.smt.launches = self.smt.moving_launches = self.mm.launches = 0
+        self.bwd.launches = self.bwd.moving_launches = 0
         self.bt.launches = {k: 0 for k in self.bt.launches}
         for k in self.bp.launches:
             self.bp.launches[k] = 0
@@ -767,6 +809,8 @@ class Counters:
     def read(self) -> dict:
         return {"sphere_min_t": self.smt.launches,
                 "sphere_min_t/moving": self.smt.moving_launches,
+                "sphere_min_t_bwd": self.bwd.launches,
+                "sphere_min_t_bwd/moving": self.bwd.moving_launches,
                 "mandelbulb_march": self.mm.launches,
                 **{f"bvh_traverse/{k}": v for k, v in self.bt.launches.items()},
                 **{f"probe/{k}": v for k, v in self.bp.launches.items()}}
@@ -792,7 +836,7 @@ def main() -> int:
 
 
 def run(device: torch.device, card: str, profile: bool) -> list:
-    """Phases 2-6 on `device`; -> the kernels' JSON records."""
+    """Phases 2-7 on `device`; -> the kernels' JSON records."""
     from raysnail_tpu_torch import cli, integrator, probes
     from raysnail_tpu_torch.accel.native import build as native
     from raysnail_tpu_torch.config import RenderConfig
@@ -1356,6 +1400,12 @@ def run(device: torch.device, card: str, profile: bool) -> list:
                 or not np.isfinite(img).all() or dmean > SCAN_MEAN_ATOL):
             raise AssertionError(f"the {label} frame did not go through K1 or is off")
 
+    # 6. train: the gradient train step ---------------------------------------
+    train = train_phase(device, card, counters, gen, {
+        "(a) example.sdl primary rays": (args_a, {}),
+        "static book 1 primary rays": (args_s, {}),
+        "(d) moving book 1 primary rays, moving form": (args_d, motion)}, vcfg.t_min, vcfg.t_max)
+
     if profile:
         smt_cases = {"(a) example.sdl primary rays": (args_a, {}),
                      "static book 1 primary rays": (args_s, {}),
@@ -1475,11 +1525,306 @@ def run(device: torch.device, card: str, profile: bool) -> list:
                         "plain_ms": rec["plain_ms"], **bound(rec["bytes"], rec["flops"]),
                         # per launch over probes.LATENCY_REPS launches back to back
                         "ms_back_to_back": rec["ms_back_to_back"]})
+    k1b = train["cases"]
+    a, book1_s, moving = (k1b[k] for k in k1b)
+    records.append({"name": "sphere_min_t_bwd", "route": "cuda", "source": src + "sphere_min_t.cu",
+                    "replaces": "raysnail_tpu/geometry/spheres.py:38",
+                    "launches": train["metal"]["launches"]["sphere_min_t_bwd"],
+                    "max_abs_err": max(r["max_abs_err"] for r in k1b.values()),
+                    **{k: a[k] for k in ("ms", "device_ms", "cold_device_ms", "plain_ms",
+                                         "bound_ms", "bound_by")},
+                    **{f"book1_{k}": book1_s[k] for k in ("ms", "device_ms", "cold_device_ms",
+                                                          "bound_ms")},
+                    **{f"moving_{k}": moving[k] for k in ("ms", "device_ms", "cold_device_ms",
+                                                           "plain_ms", "bound_ms")},
+                    "canonical_step_launches": train["canonical"]["launches"]["sphere_min_t_bwd"]})
     for rec in records:
         rec["library_ms"] = None  # no single PyTorch call computes any of these
         if rec["launches"] == 0:
             raise AssertionError(f"{rec['name']} was launched by no main-path run")
     return records
+
+
+
+def check_bwd_kernel(args, motion, t_min, t_max, gen, label: str) -> dict:
+    """K1b against its plain version on K1's output for `args` and a seeded
+    cotangent: the six gradients bit for bit; call, device and plain ms and
+    the bound (per ray t, and the two gradients; per ray that hit o, d, idx,
+    g_t, and time when moving; each sphere once)."""
+    from raysnail_tpu_torch.ops import sphere_min_t as smt
+
+    o, d, c, r2, active = args
+    n, s = o[0].shape[0], r2.shape[0]
+    moving = bool(motion)
+    with counts_kept():
+        t, idx = smt.sphere_min_t(o, d, c, r2, active, t_min, t_max, **motion)
+        g_t = torch.randn(n, generator=gen, device=t.device)
+        bwd_args = (o, d, t, idx, g_t, c, r2, t_min, t_max)
+        got = smt.sphere_min_t_bwd(*bwd_args, **motion)
+        want = smt.sphere_min_t_bwd_plain(*bwd_args, **motion)
+        torch.cuda.synchronize()
+        pairs = list(zip((*got[0], *got[1]), (*want[0], *want[1])))
+        err = max(float((a - b).abs().max()) for a, b in pairs)
+        same = all(torch.equal(a, b) for a, b in pairs)
+        n_hit = int((t < BIG).sum())
+        out = {"max_abs_err": err, "bit_equal": same, "rays": n, "hits": n_hit,
+               **bound(28 * n + (32 + 4 * moving) * n_hit + (16 + 12 * moving) * s,
+                       (BWD_OPS + BWD_MOVE_OPS * moving) * n_hit),
+               "ms": time_ms(lambda: smt.sphere_min_t_bwd(*bwd_args, **motion)),
+               "device_ms": device_ms(lambda: smt.sphere_min_t_bwd(*bwd_args, **motion)),
+               "cold_device_ms": device_ms(lambda: smt.sphere_min_t_bwd(*bwd_args, **motion),
+                                           cold=True),
+               "plain_ms": time_ms(lambda: smt.sphere_min_t_bwd_plain(*bwd_args, **motion))}
+    phase("train", f"K1b sphere_min_t_bwd {label}: N={n} S={s} hits={n_hit} bit_equal={same} "
+          f"max|d|={err!r}; call {out['ms']!r} ms, device {out['device_ms']!r} ms (L2 cold "
+          f"{out['cold_device_ms']!r} ms), plain "
+          f"{out['plain_ms']!r} ms (median of {TIMING_RUNS}); bound {out['bound_ms']!r} ms "
+          f"by {out['bound_by']}")
+    if not same:
+        raise AssertionError(f"K1b {label}: the kernel disagrees with its plain version "
+                             f"(max|d|={err})")
+    return out
+
+
+def grad_of_mean(scene, camera, cfg, weights=None):
+    """-> (image (P, 3) numpy, gradient leaves numpy) of the mean of R + G + B
+    of render_image_diff over all cells (each pixel weighted by `weights`)."""
+    from raysnail_tpu_torch.diff import extract_params
+    from raysnail_tpu_torch.diff.params import leaves
+    from raysnail_tpu_torch.diff.train import render_image_diff
+
+    p = extract_params(scene.arrays)
+    img = render_image_diff(scene, camera, cfg, p, 0, np.arange(cfg.effective_samples))
+    s = img.x + img.y + img.z
+    if weights is not None:
+        s = s * torch.as_tensor(weights, device=s.device)
+    torch.mean(s).backward()
+    return (img.to_array().detach().cpu().numpy(),
+            [x.grad.cpu().numpy() if x.grad is not None else np.zeros(x.shape)
+             for x in leaves(p)])
+
+
+def grad_parity(make, cfg, device, label: str, counters) -> dict:
+    """The card's gradient of the mean image against the CPU's, the same
+    port on both sides and the same keys; -> the launches of the card's."""
+    img_c, g_c = grad_of_mean(*make("cpu"), cfg)
+    counters.reset()
+    img_g, g_g = grad_of_mean(*make(device), cfg)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    flipped = np.abs(img_g - img_c).max(axis=1) > FLIP_ATOL
+    if flipped.mean() > FLIP_SHARE:
+        raise AssertionError(f"{label}: {int(flipped.sum())} pixels differ beyond {FLIP_ATOL}")
+    if flipped.any():
+        w = (~flipped).astype(np.float32)
+        g_c = grad_of_mean(*make("cpu"), cfg, w)[1]
+        g_g = grad_of_mean(*make(device), cfg, w)[1]
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(g_g, g_c)):
+        limit = GRAD_RTOL * float(np.abs(b).max()) + GRAD_ATOL
+        d = float(np.abs(a - b).max())
+        worst = max(worst, d / limit)
+        if not (np.isfinite(a).all() and np.isfinite(b).all()) or d > limit:
+            raise AssertionError(f"{label}: leaf {i} of the card's gradient is off the CPU's "
+                                 f"({d} > {limit}) or not finite")
+    phase("train", f"{label} {cfg.width}x{cfg.height}@{cfg.effective_samples}spp depth "
+          f"{cfg.max_depth}: card against CPU, every leaf within {GRAD_RTOL} * max|g| + "
+          f"{GRAD_ATOL} (the largest at {worst!r} of its limit), {int(flipped.sum())} flipped "
+          f"pixels left out; launches on the card {nonzero(launches)}")
+    return launches
+
+
+def metal_scene(device):
+    """A scene whose bounce directions depend on the parameters (a
+    DiffuseMetal's exponent and a BlinnPhong's lobe), so that the rays' t
+    reaches the gradient through K1b: tests/test_diff.py's scene with its
+    albedo sphere made DiffuseMetal and a BlinnPhong sphere beside it
+    (tests/test_torch_diff.py's "metal" scene)."""
+    from raysnail_tpu_torch import ir
+    from raysnail_tpu_torch.scene import SceneBuilder
+
+    b = SceneBuilder()
+    b.add(ir.Sphere((0.0, -100.5, -1.0), 100.0, ir.Lambertian(ir.Constant((0.5, 0.5, 0.5)))))
+    b.add(ir.Sphere((0.0, 0.0, -1.0), 0.5, ir.DiffuseMetal(30.0, ir.Constant((0.6, 0.3, 0.2)))))
+    b.add(ir.Sphere((-1.0, 0.0, -1.5), 0.4, ir.BlinnPhong(0.4, 20.0, ir.Constant((0.2, 0.6, 0.3)))))
+    b.add(ir.Sphere((2.0, 2.0, 0.0), 0.7, ir.DiffuseLight(ir.Constant((1.0, 1.0, 1.0)), 4.0)),
+          light=True)
+    b.set_background((0.1, 0.1, 0.1))
+    return b.compile(device=device)
+
+
+def metal_camera(cfg, device):
+    from raysnail_tpu_torch.camera import build_camera
+
+    return build_camera(look_from=(0, 0, 1), look_at=(0, 0, -1), fov=50, width=cfg.width,
+                        height=cfg.height, device=device)
+
+
+def train_steps(scene, camera, cfg, seeds, counters, label: str, card: str, may_trap=(),
+                **kw) -> dict:
+    """make_train_step's steps with the given seeds, timed together, after
+    reset peak memory and launch counts -> seconds, loss, params, launches a
+    step, peak bytes. The loss and every parameter must be finite, but the
+    entries of `may_trap` ((leaf index, rows)): those that the JAX
+    package's own square-root trap in `cosine_power_direction` can make NaN
+    (ROADMAP section 3), which are counted and printed."""
+    from raysnail_tpu_torch.diff import make_train_step
+    from raysnail_tpu_torch.diff.params import leaves
+
+    target = np.zeros((cfg.height, cfg.width, 3), np.float32)
+    step, state, params = make_train_step(scene, camera, cfg, target, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # the earlier phases' live tensors
+    per_step = []
+    t0 = time.perf_counter()
+    for seed in seeds:  # the counts are the host's: reading them waits for nothing
+        counters.reset()
+        params, state, loss = step(params, state, seed, np.arange(cfg.effective_samples))
+        per_step.append(counters.read())
+    loss = float(loss)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: sum(c[k] for c in per_step) / len(seeds) for k in per_step[0]}
+    peak = torch.cuda.max_memory_allocated() - base
+    rays = cfg.width * cfg.height * cfg.effective_samples * len(seeds)
+    bad = {i: torch.nonzero(~torch.isfinite(x)).flatten().tolist()
+           for i, x in enumerate(leaves(params)) if not bool(torch.isfinite(x).all())}
+    trapped = {i: rows for i, rows in bad.items()
+               if set(rows) <= set(dict(may_trap).get(i, ()))}
+    out = {"seconds": seconds, "s_per_step": seconds / len(seeds),
+           "mrays_fwd_bwd": rays / seconds / 1e6, "loss": loss, "launches": launches,
+           "per_step": per_step, "peak_bytes": peak, "non_finite": bad}
+    phase("train", f"{label} {cfg.width}x{cfg.height}@{cfg.effective_samples}spp depth "
+          f"{cfg.max_depth} on {card}: {len(seeds)} step(s) in {seconds!r} s, "
+          f"{out['s_per_step']!r} s a step, {out['mrays_fwd_bwd']!r} Mrays/s fwd+bwd, loss "
+          f"{loss!r}, peak {peak} B allocated above the {base} B live before; launches a "
+          f"step {nonzero(launches)}; "
+          f"non-finite parameters (leaf: rows) {bad}")
+    if trapped != bad or not np.isfinite(loss):
+        raise AssertionError(f"{label}: the step gave a non-finite loss or parameter")
+    return out
+
+
+def train_phase(device, card: str, counters, gen, k1b_cases, t_min, t_max) -> dict:
+    """Phase 6: the gradient train step on the card -> K1b's record fields."""
+    from raysnail_tpu_torch import integrator, ir
+    from raysnail_tpu_torch import materials as matlib
+    from raysnail_tpu_torch.camera import build_camera
+    from raysnail_tpu_torch.config import RenderConfig
+    from raysnail_tpu_torch.diff import extract_params
+    from raysnail_tpu_torch.diff.params import leaves
+    from raysnail_tpu_torch.diff.train import render_image_diff
+    from raysnail_tpu_torch.examples import inverse_rendering
+    from raysnail_tpu_torch.scene import SceneBuilder
+    from raysnail_tpu_torch.scenes.meshes import uv_sphere
+    from raysnail_tpu_torch.sdl.driver import build_scene
+
+    # (a) K1b against its plain version, bit for bit
+    res = {label: check_bwd_kernel(args, motion, t_min, t_max, gen, label)
+           for label, (args, motion) in k1b_cases.items()}
+
+    # (b) the card's gradient against the CPU's
+    gcfg = RenderConfig(width=GRAD_W, height=GRAD_H, samples=GRAD_SPP, max_depth=GRAD_DEPTH)
+    grad_parity(lambda dev: build_scene(SCENE, gcfg, dev), gcfg, device, "example.sdl",
+                counters)
+    metal = grad_parity(lambda dev: (metal_scene(dev), metal_camera(gcfg, dev)), gcfg, device,
+                        "metal", counters)
+    if metal["sphere_min_t_bwd"] == 0:
+        raise AssertionError("the metal scene's gradient did not launch K1b")
+    v, f, nrm = uv_sphere(8, 12, center=(0.0, 0.0, -2.0))
+    b = SceneBuilder()
+    b.add(ir.Mesh(vertices=v, indices=f, normals=nrm,
+                  material=ir.Lambertian(ir.Constant((0.7, 0.2, 0.2)))))
+    b.add(ir.Sphere((2.0, 2.0, 0.0), 0.7, ir.DiffuseLight(ir.Constant((1, 1, 1)), 4.0)),
+          light=True)
+    mscene = b.compile(device=device)
+    mcam = build_camera(look_from=(0, 0, 1), look_at=(0, 0, -2), fov=50, width=gcfg.width,
+                        height=gcfg.height, device=device)
+    counters.reset()
+    params = extract_params(mscene.arrays)
+    img = render_image_diff(mscene, mcam, gcfg, params, 0, np.arange(4))
+    torch.mean(img.x + img.y + img.z).backward()
+    torch.cuda.synchronize()
+    mesh_launches = counters.read()
+    grads = [x.grad for x in leaves(params) if x.grad is not None]
+    if (mesh_launches["bvh_traverse/tri"] == 0 or img.x.grad_fn is None
+            or not all(bool(torch.isfinite(g).all()) for g in grads)
+            or float(params.tex_color1.x.grad.abs().max()) <= 1e-7):
+        raise AssertionError("the mesh scene's gradient did not run K2, or is not finite")
+    phase("train", f"mesh scene (tests/test_diff.py:126-150) {GRAD_W}x{GRAD_H}@4spp on the "
+          f"card: every gradient finite, the mesh hit detached; launches "
+          f"{nonzero(mesh_launches)}")
+
+    # K1b on the main path: one Adam step of the metal scene at the
+    # example-fwd+bwd size, through make_train_step
+    tcfg = RenderConfig(width=TRAIN_W, height=TRAIN_H, samples=TRAIN_SPP, max_depth=TRAIN_DEPTH)
+    mscene = metal_scene(device)
+    mtype = mscene.arrays.materials.mtype.tolist()
+    # the exponents that reach cosine_power_direction: DiffuseMetal's param0
+    # (leaf 6) and BlinnPhong's param1 (leaf 7)
+    lobes = ((6, [i for i, m in enumerate(mtype) if m == matlib.DIFFUSE_METAL]),
+             (7, [i for i, m in enumerate(mtype) if m == matlib.BLINN_PHONG]))
+    mstep = train_steps(mscene, metal_camera(tcfg, device), tcfg, [0], counters,
+                        "metal train step (K1b's main path)", card, may_trap=lobes)
+    if mstep["launches"]["sphere_min_t_bwd"] == 0:
+        raise AssertionError("the metal train step did not launch K1b")
+
+    # (c) bench.py's example-fwd+bwd row: a warm-up step, then TRAIN_STEPS
+    scene, camera = build_scene(SCENE, tcfg, device)
+    warm = train_steps(scene, camera, tcfg, [0], counters, "example-fwd+bwd warm-up", card)
+    row = train_steps(scene, camera, tcfg, list(range(1, TRAIN_STEPS + 1)), counters,
+                      "example-fwd+bwd", card)
+    # K1's launches in the first timed step (seed 1) by pass: pass 1 alone,
+    # then the same step without remat
+    counters.reset()
+    with torch.no_grad():
+        _, pass1_iterations = integrator.radiance_regen_shuffle(
+            scene, scene.arrays, tcfg, camera, 1, tcfg.effective_samples)
+    torch.cuda.synchronize()
+    pass1 = counters.read()["sphere_min_t"]
+    no_remat = train_steps(scene, camera, tcfg.replace(remat_bounces=False), [1], counters,
+                           "example-fwd+bwd without remat", card)
+    k1 = row["per_step"][0]["sphere_min_t"]
+    k1_fwd = no_remat["launches"]["sphere_min_t"] - pass1
+    phase("train", f"example-fwd+bwd K1 launches in its step of seed 1: {k1:g} = pass 1 {pass1} "
+          f"({pass1_iterations} shade iterations) + the cells' forward {k1_fwd:g} + their "
+          f"recompute in the backward pass {k1 - pass1 - k1_fwd:g}; K1b "
+          f"{row['launches']['sphere_min_t_bwd']:g} (all Lambertian: no ray depends on a "
+          f"parameter); peak {row['peak_bytes']} B with remat, {no_remat['peak_bytes']} B without")
+
+    # (d) the canonical step: 800x500@64, depth 8, one backward pass a cell
+    ccfg = RenderConfig(width=WIDTH, height=HEIGHT, samples=SAMPLES, max_depth=TRAIN_DEPTH)
+    cscene, ccam = build_scene(SCENE, ccfg, device)
+    canon = train_steps(cscene, ccam, ccfg, [1], counters, "example-fwd+bwd-800x500", card)
+    # one of its cells, forward (with the recompute) and backward, under the
+    # profiler: where the step's time goes
+    def cell():
+        p = extract_params(cscene.arrays)
+        img = render_image_diff(cscene, ccam, ccfg, p, 1, [0])
+        torch.mean(img.x + img.y + img.z).backward()
+
+    cell()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cell()
+    torch.cuda.synchronize()
+    profile_frame(cscene, ccam, ccfg, "one cell of example-fwd+bwd-800x500 (forward, "
+                  "recompute, backward)", time.perf_counter() - t0, run=cell,
+                  kernel=("sphere_min_t",), kernel_name="K1 and K1b")
+
+    # (e) the inverse-rendering example at its own size
+    counters.reset()
+    t0 = time.perf_counter()
+    losses, alb = inverse_rendering.run(device, EXAMPLE_STEPS, out=lambda m: phase("train", m))
+    torch.cuda.synchronize()
+    phase("train", f"inverse_rendering.run, {EXAMPLE_STEPS} Adam(2e-2) steps at 64x48@16spp "
+          f"depth 4 on {card}: {time.perf_counter() - t0!r} s, loss {losses[0]!r} -> "
+          f"{losses[-1]!r}, albedo {alb.tolist()}; launches {nonzero(counters.read())}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError("the inverse-rendering example's loss did not fall")
+    return {"cases": res, "metal": mstep, "warm": warm, "row": row, "no_remat": no_remat,
+            "canonical": canon, "pass1": pass1}
 
 
 def _dev_us(e) -> float:
@@ -1526,34 +1871,49 @@ def counts_kept():
     from raysnail_tpu_torch.ops import sphere_min_t as smt
 
     saved = (smt.sphere_min_t.launches, smt.sphere_min_t.moving_launches,
+             smt.sphere_min_t_bwd.launches, smt.sphere_min_t_bwd.moving_launches,
              mm.mandelbulb_march.launches, dict(bt.bvh_traverse.launches))
     try:
         yield
     finally:
         (smt.sphere_min_t.launches, smt.sphere_min_t.moving_launches,
+         smt.sphere_min_t_bwd.launches, smt.sphere_min_t_bwd.moving_launches,
          mm.mandelbulb_march.launches, bt.bvh_traverse.launches) = saved
 
 
 SPIN_CYCLES = int(2e8)  # about 0.1 s at the H100's 1.98 GHz: longer than queuing the calls
+L2_FLUSH_BYTES = 128 << 20  # written between calls by device_ms(cold=True): 2.5x the L2
 
 
-def device_ms(fn, runs: int = TIMING_RUNS) -> float:
+def device_ms(fn, runs: int = TIMING_RUNS, cold: bool = False) -> float:
     """Device milliseconds per call of `fn`: after a warm-up, `runs` calls
     queued behind a spin kernel (torch.cuda._sleep), so that the card runs
     them back to back, timed between two CUDA events. Raises if queuing the
-    calls outlasted the spin, when host time would have entered."""
+    calls outlasted the spin, when host time would have entered.
+    cold=True writes L2_FLUSH_BYTES before each call, outside its events
+    (a pair of events a call, their times summed), so that the call finds
+    its inputs in device memory and not in the 50 MB L2 cache."""
     with counts_kept():
         fn()
         torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+        flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda") if cold else None
+        pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(runs if cold else 1)]
+        start, end = pairs[0][0], pairs[-1][1]
         torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
         t0 = time.perf_counter()
-        for _ in range(runs):
-            fn()
+        if cold:
+            for i, (a, b) in enumerate(pairs):
+                flush.fill_(float(i))
+                a.record()
+                fn()
+                b.record()
+        else:
+            start.record()
+            for _ in range(runs):
+                fn()
+            end.record()
         queued = time.perf_counter() - t0
-        end.record()
         end.synchronize()
         spin = torch.cuda.Event(enable_timing=True)
         spun = torch.cuda.Event(enable_timing=True)
@@ -1564,6 +1924,8 @@ def device_ms(fn, runs: int = TIMING_RUNS) -> float:
     if queued * 1e3 >= spin.elapsed_time(spun):
         raise AssertionError(f"device_ms: queuing {runs} calls took {queued:.4f} s, longer "
                              f"than the spin kernel")
+    if cold:
+        return sum(a.elapsed_time(b) for a, b in pairs) / runs
     return start.elapsed_time(end) / runs
 
 

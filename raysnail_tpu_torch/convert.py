@@ -4,7 +4,8 @@ The caller turns the JAX package's pytrees into numpy first (for example
 `jax.tree_util.tree_map(np.asarray, scene.arrays)`); these functions then
 build the port's NamedTuples field by field, by name, so both packages can
 render identical scene data: the compiled arrays, the CSG trees and the
-media (nodes matched by class name). Nothing here imports JAX.
+media (nodes matched by class name), and the gradient step's state: the
+scene parameters and optax's Adam state. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -98,3 +99,45 @@ def media_from_numpy(media, device) -> tuple:
     """The JAX package's compiled `Scene.media` (numpy leaves) -> the port's
     MediumNodes."""
     return tuple(_node(m, device) for m in media)
+
+
+_PARAM_FIELDS = ("tex_color1", "tex_color2", "mat_param0", "mat_param1", "emit_mult",
+                 "phong_factor")
+
+
+def _param_leaves(p) -> list:
+    """A SceneParams-shaped object's ten leaves in `diff.params.leaves`
+    order, read by field name."""
+    out = []
+    for f in _PARAM_FIELDS:
+        v = getattr(p, f)
+        out.extend((v.x, v.y, v.z) if hasattr(v, "x") else (v,))
+    return out
+
+
+def scene_params_from_numpy(params, device):
+    """The JAX package's SceneParams (numpy leaves) -> the port's, as fresh
+    leaf tensors with requires_grad=True (as `diff.extract_params`)."""
+    from raysnail_tpu_torch.diff.params import from_leaves
+
+    return from_leaves(torch.as_tensor(np.array(a), device=device).requires_grad_(True)
+                       for a in _param_leaves(params))
+
+
+def adam_state_from_numpy(optax_state, params) -> dict:
+    """optax's Adam state (numpy leaves: `ScaleByAdamState` with count, mu
+    and nu, or the chain tuple that holds it) -> the port's optimizer state
+    for `diff.make_train_step`: per leaf of `params` (the port's
+    SceneParams), torch.optim.Adam's step, exp_avg and exp_avg_sq. A port
+    step then continues the JAX run."""
+    from raysnail_tpu_torch.diff.params import leaves
+
+    if not hasattr(optax_state, "mu"):
+        optax_state = next(s for s in optax_state if hasattr(s, "mu"))
+    count = float(np.asarray(optax_state.count))
+    mine = leaves(params)
+    mu, nu = _param_leaves(optax_state.mu), _param_leaves(optax_state.nu)
+    return {i: {"step": torch.tensor(count, dtype=torch.float32),
+                "exp_avg": torch.as_tensor(np.array(m), dtype=x.dtype, device=x.device),
+                "exp_avg_sq": torch.as_tensor(np.array(v), dtype=x.dtype, device=x.device)}
+            for i, (x, m, v) in enumerate(zip(mine, mu, nu))}

@@ -48,6 +48,21 @@
 //
 // The C entry point launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError().
+//
+// K1b, the backward of the sweep (`sphere_min_t_bwd_launch`): the gradient
+// of each ray's t with respect to its origin and direction, given K1's t
+// and idx and the cotangent g_t. Only the winner's pair carries t, so the
+// gradient is the winner's: recompute l = o - c (c moved in the moving
+// form), half_b = d.l, cc = l.l - r2, delta and sq = sqrt(delta), pick the
+// root as the forward picked it (t1 when t_min < t1 < t_max, else t2), and
+// apply the chain rule of t = -half_b -/+ sq through half_b and cc:
+//   dt/dhalf_b = -1 -/+ half_b / sq,   dt/dcc = +/- 0.5 / sq,
+//   g_o = g_hb * d + 2 g_cc * l,       g_d = g_hb * l.
+// A ray whose t is BIG (a miss) gets 0. One thread a ray, no atomics: the
+// gradient goes to the ray, never to the sphere (geometry is not a
+// parameter). The operations and their order are those of
+// `ops.sphere_min_t.sphere_min_t_bwd_plain`; with -fmad=false and IEEE
+// divisions and square root the two agree bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -200,4 +215,105 @@ extern "C" int sphere_min_t_shape(int moving, int* threads, int* rays, int* tile
              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                    blocks_per_sm, sphere_min_t_kernel<false>, kThreads, 0);
   return static_cast<int>(err);
+}
+
+namespace {
+
+constexpr int kBwdThreads = 256;
+
+template <bool MOVING>
+__global__ void __launch_bounds__(kBwdThreads)
+sphere_min_t_bwd_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
+                        const float* __restrict__ oz, const float* __restrict__ dx,
+                        const float* __restrict__ dy, const float* __restrict__ dz,
+                        const float* __restrict__ t, const int32_t* __restrict__ idx,
+                        const float* __restrict__ g_t, const float* __restrict__ cx,
+                        const float* __restrict__ cy, const float* __restrict__ cz,
+                        const float* __restrict__ r2, const float* __restrict__ sx,
+                        const float* __restrict__ sy, const float* __restrict__ sz,
+                        const float* __restrict__ time, float t_min, float t_max,
+                        float* __restrict__ go_x, float* __restrict__ go_y,
+                        float* __restrict__ go_z, float* __restrict__ gd_x,
+                        float* __restrict__ gd_y, float* __restrict__ gd_z, int n) {
+  const int ray = blockIdx.x * kBwdThreads + threadIdx.x;
+  if (ray >= n) return;
+  float gox = 0.f, goy = 0.f, goz = 0.f, gdx = 0.f, gdy = 0.f, gdz = 0.f;
+  if (t[ray] < kBig) {
+    const int k = idx[ray];
+    const float d_x = dx[ray], d_y = dy[ray], d_z = dz[ray];
+    float c_x = cx[k], c_y = cy[k], c_z = cz[k];
+    if (MOVING) {
+      const float tm = time[ray];
+      c_x = c_x + sx[k] * tm;
+      c_y = c_y + sy[k] * tm;
+      c_z = c_z + sz[k] * tm;
+    }
+    const float lx = ox[ray] - c_x;
+    const float ly = oy[ray] - c_y;
+    const float lz = oz[ray] - c_z;
+    const float half_b = (d_x * lx + d_y * ly) + d_z * lz;
+    const float cc = ((lx * lx + ly * ly) + lz * lz) - r2[k];
+    const float sq = sqrtf(half_b * half_b - cc);  // delta > 0 for every winner
+    const float t1 = -half_b - sq;
+    const bool in1 = (t_min < t1) && (t1 < t_max);
+    const float q = half_b / sq;
+    const float h = 0.5f / sq;
+    const float g = g_t[ray];
+    const float g_hb = g * ((in1 ? -q : q) - 1.0f);
+    const float g_cc2 = (g * (in1 ? h : -h)) * 2.0f;
+    gox = g_hb * d_x + g_cc2 * lx;
+    goy = g_hb * d_y + g_cc2 * ly;
+    goz = g_hb * d_z + g_cc2 * lz;
+    gdx = g_hb * lx;
+    gdy = g_hb * ly;
+    gdz = g_hb * lz;
+  }
+  go_x[ray] = gox;
+  go_y[ray] = goy;
+  go_z[ray] = goz;
+  gd_x[ray] = gdx;
+  gd_y[ray] = gdy;
+  gd_z[ray] = gdz;
+}
+
+}  // namespace
+
+extern "C" int sphere_min_t_bwd_launch(const void* ox, const void* oy, const void* oz,
+                                       const void* dx, const void* dy, const void* dz,
+                                       const void* t, const void* idx, const void* g_t,
+                                       const void* cx, const void* cy, const void* cz,
+                                       const void* r2, const void* sx, const void* sy,
+                                       const void* sz, const void* time, float t_min,
+                                       float t_max, void* go_x, void* go_y, void* go_z,
+                                       void* gd_x, void* gd_y, void* gd_z, int n, int s,
+                                       void* stream) {
+  // time (N,) selects the moving form, with sx, sy, sz (S,), which are null
+  // only when S = 0; all four null: static. A ray's idx names a sphere only
+  // where its t is below BIG.
+  if (n > 0) {
+    const int blocks = (n + kBwdThreads - 1) / kBwdThreads;
+    auto st = static_cast<cudaStream_t>(stream);
+#define ARGS                                                                     \
+  static_cast<const float*>(ox), static_cast<const float*>(oy),                 \
+      static_cast<const float*>(oz), static_cast<const float*>(dx),             \
+      static_cast<const float*>(dy), static_cast<const float*>(dz),             \
+      static_cast<const float*>(t), static_cast<const int32_t*>(idx),           \
+      static_cast<const float*>(g_t), static_cast<const float*>(cx),            \
+      static_cast<const float*>(cy), static_cast<const float*>(cz),             \
+      static_cast<const float*>(r2), static_cast<const float*>(sx),             \
+      static_cast<const float*>(sy), static_cast<const float*>(sz),             \
+      static_cast<const float*>(time), t_min, t_max, static_cast<float*>(go_x), \
+      static_cast<float*>(go_y), static_cast<float*>(go_z),                     \
+      static_cast<float*>(gd_x), static_cast<float*>(gd_y),                     \
+      static_cast<float*>(gd_z), n
+    if (time && (s == 0 || (sx && sy && sz))) {
+      sphere_min_t_bwd_kernel<true><<<blocks, kBwdThreads, 0, st>>>(ARGS);
+    } else if (!sx && !sy && !sz && !time) {
+      sphere_min_t_bwd_kernel<false><<<blocks, kBwdThreads, 0, st>>>(ARGS);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef ARGS
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -49,6 +49,13 @@ def finalize(ray_dir: Vec3, t, geom_normal: Vec3, u, v, mat_id, valid) -> Hit:
                mat_id=mat_id.to(torch.int32), outside=outside)
 
 
+def detach(h: Hit) -> Hit:
+    """The hit with no gradient through it (the JAX package's
+    `lax.stop_gradient` of a hit)."""
+    return Hit(t=h.t.detach(), valid=h.valid, normal=h.normal.map(torch.Tensor.detach),
+               u=h.u.detach(), v=h.v.detach(), mat_id=h.mat_id, outside=h.outside)
+
+
 def combine_hits(a: Hit, b: Hit) -> Hit:
     """Keep the nearer of two candidate hits (misses have t=BIG)."""
     take_b = b.t < a.t

@@ -14,6 +14,12 @@ which returns the winner's center, radius and material itself.
 With `moving`, centers move by speed * ray.time: the sweep is the kernel's
 moving form, and the winner's center is moved the same way. Scene compile
 leaves a moving group without a packed BVH, as the JAX package does.
+
+Gradients: where grad mode is on and a ray or group tensor requires grad,
+the sweep goes through `ops.sphere_min_t.SphereMinT`, whose backward is
+the kernel K1b on the card, so t stays attached to the rays' origins and
+directions (the material parameters' pathwise gradients flow through the
+hit points). The BVH route is detached, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import torch
 from raysnail_tpu_torch.geometry import hit as hitlib
 from raysnail_tpu_torch.geometry.hit import BIG, Hit
 from raysnail_tpu_torch.ops.bvh_traverse import bvh_traverse, lane_caps
-from raysnail_tpu_torch.ops.sphere_min_t import sphere_min_t
+from raysnail_tpu_torch.ops.sphere_min_t import SphereMinT, sphere_min_t
 from raysnail_tpu_torch.prelude.sampling import PI
 from raysnail_tpu_torch.prelude.vec import Vec3, div_const
 
@@ -81,14 +87,18 @@ def intersect(group: SphereGroup, ray, t_min, t_max, need_uv: bool = True,
     o, d = ray.origin, ray.direction
     if use_bvh and group.pk_bb is not None:
         return _intersect_bvh(group, ray, t_min, t_max, need_uv, active, packet)
-    motion = {}
-    if moving:
-        motion = dict(speed_xyz=(group.speed.x, group.speed.y, group.speed.z),
-                      time=ray.time.contiguous())
-    t_best, idx = sphere_min_t(
-        (o.x, o.y, o.z), (d.x, d.y, d.z),
-        (group.center.x, group.center.y, group.center.z),
-        group.radius * group.radius, group.active, t_min, t_max, **motion)
+    speed = (group.speed.x, group.speed.y, group.speed.z) if moving else (None,) * 3
+    time = ray.time.contiguous() if moving else None
+    center = (group.center.x, group.center.y, group.center.z)
+    r2 = group.radius * group.radius
+    tensors = (o.x, o.y, o.z, d.x, d.y, d.z, *center, r2, *speed, time)
+    if torch.is_grad_enabled() and any(a is not None and a.requires_grad for a in tensors):
+        t_best, idx = SphereMinT.apply(o.x, o.y, o.z, d.x, d.y, d.z, *center, r2, group.active,
+                                       t_min, t_max, *speed, time)
+    else:
+        motion = dict(speed_xyz=speed, time=time) if moving else {}
+        t_best, idx = sphere_min_t((o.x, o.y, o.z), (d.x, d.y, d.z), center, r2, group.active,
+                                   t_min, t_max, **motion)
     valid = t_best < BIG
     idx = idx.long()
     center = group.center[idx]
@@ -111,10 +121,11 @@ def _intersect_bvh(group: SphereGroup, ray, t_min, t_max, need_uv: bool, active,
                    packet=None) -> Hit:
     o, d = ray.origin, ray.direction
     cap = lane_caps(d.x, active=active)
-    t, cx, cy, cz, r, mat = bvh_traverse(
+    # detached, as the JAX package stops the kernel's gradient
+    t, cx, cy, cz, r, mat = (a.detach() for a in bvh_traverse(
         (o.x, o.y, o.z), (d.x, d.y, d.z), cap, group.pk_bb, group.pk_links, group.pk_sph,
         t_min, t_max, kind="sphere", cbb=group.pk_cbb, crange=group.pk_crange,
-        packet=packet)
+        packet=packet))
     valid = t < BIG * 0.5
     center = Vec3(cx, cy, cz)
     p = o + d * t

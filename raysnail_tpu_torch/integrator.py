@@ -9,8 +9,8 @@ body over a dense ray batch with masked lanes, driven by one of three loops:
     spp x max_depth;
   * the per-sample scan (`radiance`, `radiance_and_alive`): max_depth
     bounces of one sample per lane, dead lanes masked. It takes any keys
-    (fast streams or threefry keys); in the JAX package it is the gradient
-    path, which ROADMAP M15 ports onto it.
+    (fast streams or threefry keys); it is the gradient path
+    (`diff.train`), as in the JAX package.
 
 Estimator (compat path, the default — camera.rs:194-247):
   * emitted term added every bounce (before scattering);
@@ -35,6 +35,7 @@ pdf).
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from raysnail_tpu_torch import lights as lightslib
 from raysnail_tpu_torch import materials as matlib
@@ -211,6 +212,18 @@ def _make_shade(scene: scenelib.Scene, cfg: RenderConfig, routes: scenelib.Route
     return shade
 
 
+def _requires_grad(tree) -> bool:
+    """Whether a tensor in a nest of tuples, NamedTuples and Vec3s requires
+    grad."""
+    if isinstance(tree, torch.Tensor):
+        return tree.requires_grad
+    if isinstance(tree, Vec3):
+        return any(_requires_grad(a) for a in tree)
+    if isinstance(tree, tuple):
+        return any(_requires_grad(a) for a in tree)
+    return False
+
+
 def radiance(scene: scenelib.Scene, arrays: scenelib.SceneArrays, cfg: RenderConfig,
              ray: Ray, keys) -> Vec3:
     """Per-ray radiance estimate after up to cfg.max_depth bounces.
@@ -227,10 +240,12 @@ def radiance_and_alive(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
     fold_all(keys, b). A path still alive after the budget contributes
     nothing more (camera.rs:161-163).
 
-    The JAX package can rematerialise each bounce in the backward pass
-    (cfg.remat_bounces, `jax.checkpoint`); that changes no forward value,
-    and its counterpart, `torch.utils.checkpoint` per bounce, comes with the
-    gradient path (ROADMAP M15).
+    With cfg.remat_bounces, grad mode on and a scene tensor or the rays
+    requiring grad, each bounce runs under `torch.utils.checkpoint` (the
+    JAX package's `jax.checkpoint` of the bounce): the backward pass keeps
+    only the bounce carries and recomputes the bounce body. Every draw is
+    counter-based, so the recompute draws the same numbers and no value
+    changes.
 
     -> (L (N,) Vec3, live lanes after each bounce as a (max_depth,) int32
     tensor on the rays' device; nothing is read back to the host)."""
@@ -242,8 +257,15 @@ def radiance_and_alive(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
     T, L = Vec3.ones(shape, dtype, device), Vec3.zeros(shape, dtype, device)
     alive = torch.ones(shape, dtype=torch.bool, device=device)
     counts = torch.zeros(max(cfg.max_depth, 0), dtype=torch.int32, device=device)
+    remat = (cfg.remat_bounces and torch.is_grad_enabled()
+             and _requires_grad((arrays, ray.origin, ray.direction)))
     for b in range(cfg.max_depth):
-        o, d, T, L, alive = shade(arrays, o, d, T, L, alive, prng.fold_all(keys, b), time)
+        kb = prng.fold_all(keys, b)
+        if remat:
+            o, d, T, L, alive = checkpoint(shade, arrays, o, d, T, L, alive, kb, time,
+                                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            o, d, T, L, alive = shade(arrays, o, d, T, L, alive, kb, time)
         counts[b] = alive.sum(dtype=torch.int32)
     return L, counts
 

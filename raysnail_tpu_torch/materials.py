@@ -25,7 +25,7 @@ import torch
 
 from raysnail_tpu_torch.prelude import sampling
 from raysnail_tpu_torch.prelude.sampling import INV_PI, PI
-from raysnail_tpu_torch.prelude.vec import Vec3, div_const
+from raysnail_tpu_torch.prelude.vec import Vec3, div_const, take
 
 LAMBERTIAN = 0
 METAL = 1
@@ -83,11 +83,12 @@ def resolve(table: MaterialTable, mat_id, u_mix, default_id: int = 0, depth: int
 
 
 def gather(table: MaterialTable, mat_id) -> Rows:
-    """Per-ray material rows by index."""
+    """Per-ray material rows by index (the float rows by `take`, whose
+    backward is the one the gradient step can afford)."""
     m = mat_id.long()
-    return Rows(mtype=table.mtype[m], tex_id=table.tex_id[m], param0=table.param0[m],
-                param1=table.param1[m], emit_mult=table.emit_mult[m],
-                phong_factor=table.phong_factor[m],
+    return Rows(mtype=table.mtype[m], tex_id=table.tex_id[m], param0=take(table.param0, m),
+                param1=take(table.param1, m), emit_mult=take(table.emit_mult, m),
+                phong_factor=take(table.phong_factor, m),
                 phong_exponent=table.phong_exponent[m])
 
 

@@ -14,6 +14,16 @@ to c + speed * time for the ray's time, the reference's motion blur
 
 `sphere_min_t.launches` counts kernel launches (not plain-version calls), so
 a run can show that its sphere sweeps went through the kernel.
+
+The backward (K1b): `sphere_min_t_bwd` is the gradient of each ray's t with
+respect to its origin and direction, which the winner's pair alone carries
+(the JAX package's `jnp.min` gives its gradient to the arg-min entry). On
+CUDA tensors it launches the second entry point of `csrc/sphere_min_t.cu`
+or raises; on CPU tensors it runs `sphere_min_t_bwd_plain`.
+`sphere_min_t_bwd.launches` counts its kernel launches. `SphereMinT` is
+the autograd Function of the pair: forward `sphere_min_t`, backward
+`sphere_min_t_bwd`; centers, radii and time get no gradient (geometry is
+not a parameter).
 """
 
 from __future__ import annotations
@@ -42,6 +52,10 @@ def _load():
         fn.argtypes = [ptr] * 15 + [ctypes.c_float, ctypes.c_float, ptr, ptr,
                                     ctypes.c_int, ctypes.c_int, ptr]
         fn.restype = ctypes.c_int
+        bwd = lib.sphere_min_t_bwd_launch
+        bwd.argtypes = [ptr] * 17 + [ctypes.c_float, ctypes.c_float] + [ptr] * 6 + [
+            ctypes.c_int, ctypes.c_int, ptr]
+        bwd.restype = ctypes.c_int
         lib.sphere_min_t_shape.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
         lib.sphere_min_t_shape.restype = ctypes.c_int
         _lib = lib
@@ -153,3 +167,118 @@ def sphere_min_t(origin_xyz, dir_xyz, center_xyz, r2, active, t_min, t_max,
 
 sphere_min_t.launches = 0          # every launch, static and moving
 sphere_min_t.moving_launches = 0   # of them, the launches of the moving form
+
+
+def sphere_min_t_bwd_plain(origin_xyz, dir_xyz, t, idx, g_t, center_xyz, r2, t_min, t_max,
+                           speed_xyz=None, time=None):
+    """Plain PyTorch version of K1b: per ray, the winner's pair recomputed
+    and the chain rule of t = -half_b -/+ sq through half_b and cc = l.l -
+    r2 applied to g_t. -> (g_origin (three (N,)), g_direction (three (N,))).
+    The root is the one the forward took: t1 where t_min < t1 < t_max, else
+    t2 (`pair_t`'s in1/in2 rule). Rays with t = BIG get 0. Any float dtype;
+    the divisions divide by tensors, so that they round as the kernel's."""
+    if r2.shape[0] == 0:  # no sphere, no winner
+        zeros = tuple(torch.zeros_like(t) for _ in range(6))
+        return zeros[:3], zeros[3:]
+    valid = t < BIG
+    k = idx.long()
+    cx, cy, cz = (c[k] for c in center_xyz)
+    if speed_xyz is not None:
+        cx = cx + speed_xyz[0][k] * time
+        cy = cy + speed_xyz[1][k] * time
+        cz = cz + speed_xyz[2][k] * time
+    dx, dy, dz = dir_xyz
+    lx = origin_xyz[0] - cx
+    ly = origin_xyz[1] - cy
+    lz = origin_xyz[2] - cz
+    half_b = dx * lx + dy * ly + dz * lz
+    c = lx * lx + ly * ly + lz * lz - r2[k]
+    sq = torch.sqrt(half_b * half_b - c)
+    t1 = -half_b - sq
+    in1 = (t_min < t1) & (t1 < t_max)
+    q = half_b / sq
+    h = torch.full_like(sq, 0.5) / sq
+    g_hb = g_t * (torch.where(in1, -q, q) - 1.0)
+    g_cc2 = (g_t * torch.where(in1, h, -h)) * 2.0
+    zero = torch.zeros_like(t)
+    g_o = tuple(torch.where(valid, g_hb * dd + g_cc2 * ll, zero)
+                for dd, ll in ((dx, lx), (dy, ly), (dz, lz)))
+    g_d = tuple(torch.where(valid, g_hb * ll, zero) for ll in (lx, ly, lz))
+    return g_o, g_d
+
+
+def sphere_min_t_bwd(origin_xyz, dir_xyz, t, idx, g_t, center_xyz, r2, t_min, t_max,
+                     speed_xyz=None, time=None):
+    """K1b: -> (g_origin, g_direction), three (N,) f32 tensors each, the
+    gradient of the sweep's t (K1's output, with its idx) under the
+    cotangent g_t (N,). Inputs as `sphere_min_t`'s, with r2 (S,) f32; the
+    moving form when speed_xyz and time are given."""
+    if (speed_xyz is None) != (time is None):
+        raise ValueError("sphere_min_t_bwd: speed_xyz and time go together")
+    moving = speed_xyz is not None
+    device = origin_xyz[0].device
+    n = origin_xyz[0].shape[0]
+    s = r2.shape[0]
+    for name, group, size in (("origin", origin_xyz, n), ("direction", dir_xyz, n),
+                              ("center", center_xyz, s), ("speed", speed_xyz or (), s)):
+        for i, a in enumerate(group):
+            _check(f"{name}[{i}]", a, size, torch.float32, device)
+    _check("t", t, n, torch.float32, device)
+    _check("idx", idx, n, torch.int32, device)
+    _check("g_t", g_t, n, torch.float32, device)
+    _check("r2", r2, s, torch.float32, device)
+    if moving:
+        _check("time", time, n, torch.float32, device)
+    if device.type == "cpu":
+        return sphere_min_t_bwd_plain(origin_xyz, dir_xyz, t, idx, g_t, center_xyz, r2,
+                                      t_min, t_max, speed_xyz, time)
+    if device.type != "cuda":
+        raise ValueError(f"sphere_min_t_bwd: unsupported device {device}")
+
+    out = torch.empty((6, n), dtype=torch.float32, device=device)
+    lib = _load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.sphere_min_t_bwd_launch(
+            *(a.data_ptr() for a in (*origin_xyz, *dir_xyz, t, idx, g_t, *center_xyz, r2)),
+            *((a.data_ptr() for a in (*speed_xyz, time)) if moving else (None,) * 4),
+            float(t_min), float(t_max), *(out[i].data_ptr() for i in range(6)), n, s, stream)
+    if err != 0:
+        raise RuntimeError(f"sphere_min_t_bwd kernel launch failed: cudaError {err}")
+    sphere_min_t_bwd.launches += 1
+    if moving:
+        sphere_min_t_bwd.moving_launches += 1
+    return tuple(out[:3]), tuple(out[3:])
+
+
+sphere_min_t_bwd.launches = 0          # every launch of K1b, static and moving
+sphere_min_t_bwd.moving_launches = 0   # of them, the launches of the moving form
+
+
+class SphereMinT(torch.autograd.Function):
+    """(t, idx) of `sphere_min_t` with t differentiable in the rays' origin
+    and direction: apply(ox, oy, oz, dx, dy, dz, cx, cy, cz, r2, active,
+    t_min, t_max, sx, sy, sz, time), the last four None in the static
+    form. idx is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, ox, oy, oz, dx, dy, dz, cx, cy, cz, r2, active, t_min, t_max,
+                sx, sy, sz, time):
+        motion = {}
+        if time is not None:
+            motion = dict(speed_xyz=(sx, sy, sz), time=time)
+        t, idx = sphere_min_t((ox, oy, oz), (dx, dy, dz), (cx, cy, cz), r2, active,
+                              t_min, t_max, **motion)
+        ctx.mark_non_differentiable(idx)
+        ctx.save_for_backward(ox, oy, oz, dx, dy, dz, t, idx, cx, cy, cz, r2,
+                              *((sx, sy, sz, time) if motion else ()))
+        ctx.t_min, ctx.t_max = t_min, t_max
+        return t, idx
+
+    @staticmethod
+    def backward(ctx, g_t, _g_idx):
+        ox, oy, oz, dx, dy, dz, t, idx, cx, cy, cz, r2, *motion = ctx.saved_tensors
+        extra = dict(speed_xyz=tuple(motion[:3]), time=motion[3]) if motion else {}
+        g_o, g_d = sphere_min_t_bwd((ox, oy, oz), (dx, dy, dz), t, idx, g_t.contiguous(),
+                                    (cx, cy, cz), r2, ctx.t_min, ctx.t_max, **extra)
+        return (*g_o, *g_d) + (None,) * 11

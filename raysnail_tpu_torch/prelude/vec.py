@@ -22,6 +22,16 @@ def div_const(a: torch.Tensor, c: float) -> torch.Tensor:
     return a / torch.full_like(a, c)
 
 
+def take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] (a table's rows gathered by per-ray indices) through
+    torch.index_select, whose backward adds the rays' gradients into the
+    rows with index_add_. The backward of table[idx] sorts the indices and
+    sums each row's run of duplicates in one thread: on the card, a table of
+    a few rows gathered by 400,000 rays took 18 ms a call that way. The
+    values are the same."""
+    return torch.index_select(table, 0, idx.reshape(-1)).reshape(idx.shape)
+
+
 class Vec3:
     """A batch of 3-vectors (or points, or RGB colors) in SoA form."""
 
@@ -64,6 +74,10 @@ class Vec3:
 
     def __getitem__(self, idx) -> "Vec3":
         return Vec3(self.x[idx], self.y[idx], self.z[idx])
+
+    def take(self, idx) -> "Vec3":
+        """Rows gathered by per-ray indices (`take`)."""
+        return Vec3(take(self.x, idx), take(self.y, idx), take(self.z, idx))
 
     # -- arithmetic --------------------------------------------------------
     @staticmethod

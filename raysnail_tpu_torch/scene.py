@@ -41,6 +41,7 @@ from raysnail_tpu_torch.geometry import boxes, csg, quadrics, rects, spheres, tr
 from raysnail_tpu_torch.geometry import media as medialib
 from raysnail_tpu_torch.geometry.mandelbulb import MandelbulbNode
 from raysnail_tpu_torch.geometry import transforms as tf
+from raysnail_tpu_torch.geometry import hit as hitlib
 from raysnail_tpu_torch.geometry.hit import Hit, combine_hits, miss
 from raysnail_tpu_torch.ops.bvh_traverse import COARSE_MAX, LANES, MXU_LANES, NF
 from raysnail_tpu_torch.prelude import rng as prng
@@ -133,7 +134,9 @@ def intersect(scene: Scene, arrays: SceneArrays, ray, t_min, t_max, key=None,
     integrator's alive mask: on the kernel routes dead lanes admit no BVH
     node, and the box and triangle routes take the best hit so far as their
     admission cap (t_cap); the trees and media come after, uncapped, and a
-    Mandelbulb's march skips the dead lanes."""
+    Mandelbulb's march skips the dead lanes. The triangle and Mandelbulb
+    hits carry no gradient (`hit.detach`), as in the JAX package; every
+    other group's hit stays attached to the rays."""
     d = ray.direction
     best = miss(d.x.shape, d.x.dtype, d.x.device)
     if arrays.spheres is not None:
@@ -162,14 +165,16 @@ def intersect(scene: Scene, arrays: SceneArrays, ray, t_min, t_max, key=None,
                 bin_mode=routes.mesh_bin, packet=routes.packet)
         else:
             tri_hit = triangles.intersect_brute(arrays.triangles, ray, t_min, t_max)
-        best = combine_hits(best, tri_hit)
+        # geometry gradients are out of scope: the mesh hit is detached, as
+        # in the JAX package
+        best = combine_hits(best, hitlib.detach(tri_hit))
     if scene.csg_trees:
         best = combine_hits(best, csg.intersect_trees(scene.csg_groups, ray, t_min, t_max))
     if scene.media:
         us = prng.ray_uniforms(prng.fold_all(key, prng.MEDIUM), len(scene.media), d.x.dtype)
         best = combine_hits(best, medialib.intersect_media(scene.media, ray, t_min, t_max, us))
     for bulb in scene.mandelbulbs:
-        best = combine_hits(best, bulb.hit(ray, t_min, t_max, active=active))
+        best = combine_hits(best, hitlib.detach(bulb.hit(ray, t_min, t_max, active=active)))
     return best
 
 

@@ -149,7 +149,7 @@ def _turbulence(table, pid, p: Vec3, depth):
 
 def _eval_base(table: TextureTable, tid, u, v, p: Vec3, modes: frozenset) -> Vec3:
     """Every non-checker mode for row `tid`, selected by the row's type."""
-    out = table.color1[tid]  # CONSTANT is the base case
+    out = table.color1.take(tid)  # CONSTANT is the base case
     tt = table.ttype[tid]
     if IMAGE in modes:
         out = Vec3.where(tt == IMAGE, _image(table, tid, u, v), out)
@@ -197,5 +197,5 @@ def evaluate(table: TextureTable, tex_id, u, v, p: Vec3, modes: frozenset) -> Ve
         cval = _eval_base(table, leaf, u, v, p, modes)
     else:
         odd = _checker_sign(table, tid, p)
-        cval = Vec3.where(odd, table.color1[tid], table.color2[tid])
+        cval = Vec3.where(odd, table.color1.take(tid), table.color2.take(tid))
     return Vec3.where(is_checker, cval, out)

@@ -645,3 +645,120 @@ def test_mandelbulb_march_edge_cases_and_the_callers_stream(cuda_device):
     assert check(empty, empty, None)[0].shape == (0,)
     check(o, d, active, torch.cuda.Stream())
     check(o, d, active)
+
+
+# -- K1b, the backward of the sphere sweep, and the gradient step ------------
+
+def bwd_case(seed, n, s, device, moving=False):
+    """K1's inputs and outputs on `n` rays (origins in a 30^3 box, so some
+    start inside a sphere and take the far root; most miss: dead lanes) and
+    a seeded cotangent."""
+    o, d, c, r2, act = sphere_case(seed, n, s, device)
+    motion = sphere_motion(seed, n, s, device) if moving else {}
+    t, idx = smt.sphere_min_t_plain(o, d, c, r2, act, TMIN, 40.0, **motion)
+    g = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(n).astype(np.float32))
+    return (o, d, t, idx, g.to(device), c, r2, TMIN, 40.0), motion
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moving", [False, True])
+@pytest.mark.parametrize("n,s", [(0, 8), (1, 8), (33, 8), (100_003, 478), (4099, 0)])
+def test_sphere_bwd_kernel_matches_plain(cuda_device, moving, n, s):
+    args, motion = bwd_case(n + s + 5, n, s, cuda_device, moving)
+    before = (smt.sphere_min_t_bwd.launches, smt.sphere_min_t_bwd.moving_launches)
+    g_o, g_d = smt.sphere_min_t_bwd(*args, **motion)
+    assert smt.sphere_min_t_bwd.launches == before[0] + 1
+    assert smt.sphere_min_t_bwd.moving_launches == before[1] + moving
+    p_o, p_d = smt.sphere_min_t_bwd_plain(*args, **motion)
+    torch.cuda.synchronize()
+    for a, b in zip((*g_o, *g_d), (*p_o, *p_d)):
+        assert a.shape == (n,) and torch.equal(a, b)
+    if n > 1000 and s > 0:
+        hit = args[2] < smt.BIG
+        assert 0 < int(hit.sum()) < n and bool((g_o[0][~hit] == 0).all())
+
+
+@pytest.mark.cuda
+def test_sphere_function_backward_launches_k1b(cuda_device):
+    """On CUDA tensors SphereMinT's backward is the kernel: its launch count
+    moves by one a backward pass, and the gradient equals the plain one."""
+    o, d, c, r2, act = sphere_case(9, 5000, 40, cuda_device)
+    xs = [a.clone().requires_grad_(True) for a in (*o, *d)]
+    t, idx = smt.SphereMinT.apply(*xs, *c, r2, act, TMIN, 40.0, None, None, None, None)
+    g = torch.linspace(-1, 1, 5000, device=cuda_device)
+    before = smt.sphere_min_t_bwd.launches
+    (t * g).sum().backward()
+    assert smt.sphere_min_t_bwd.launches == before + 1
+    p_o, p_d = smt.sphere_min_t_bwd_plain(o, d, t.detach(), idx, g, c, r2, TMIN, 40.0)
+    for x, want in zip(xs, (*p_o, *p_d)):
+        assert torch.equal(x.grad, want)
+
+
+def _grad_step(scene, cam, cfg, weights=None):
+    from raysnail_tpu_torch.diff import extract_params
+    from raysnail_tpu_torch.diff.params import leaves
+    from raysnail_tpu_torch.diff.train import render_image_diff
+
+    p = extract_params(scene.arrays)
+    img = render_image_diff(scene, cam, cfg, p, 0, np.arange(cfg.effective_samples))
+    s = img.x + img.y + img.z
+    if weights is not None:
+        s = s * torch.as_tensor(weights, device=s.device)
+    torch.mean(s).backward()
+    return (img.to_array().detach().cpu().numpy(),
+            [x.grad.cpu().numpy() if x.grad is not None else np.zeros(x.shape)
+             for x in leaves(p)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["example.sdl", "metal"])
+def test_gradient_on_the_card_matches_the_cpu(cuda_device, name):
+    """render_image_diff's gradient (the mean of R + G + B) at 32x20@4spp,
+    depth 4, on the card against the CPU: each leaf within
+    1e-3 * max|g_cpu| + 1e-6 (the card adds the rows' gradients in an order
+    of its own); pixels whose radiance differs beyond 1e-4 (a path flipped
+    by an ulp) are left out of the scalar on both sides, at most 1%. The
+    metal scene (a DiffuseMetal and a BlinnPhong sphere) sends its bounce
+    rays' t through K1b."""
+    import os
+
+    from raysnail_tpu_torch.camera import build_camera
+    from raysnail_tpu_torch.config import RenderConfig
+    from raysnail_tpu_torch.sdl.driver import build_scene
+
+    cfg = RenderConfig(width=32, height=20, samples=4, max_depth=4)
+    if name == "example.sdl":
+        path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "sdl", "example.sdl")
+        made = {dev: build_scene(path, cfg, dev) for dev in ("cpu", cuda_device)}
+    else:
+        made = {dev: (metal_scene(dev), build_camera(look_from=(0, 0, 1), look_at=(0, 0, -1),
+                                                     fov=50, width=32, height=20, device=dev))
+                for dev in ("cpu", cuda_device)}
+    before = smt.sphere_min_t_bwd.launches
+    img_c, g_c = _grad_step(*made["cpu"], cfg)
+    img_g, g_g = _grad_step(*made[cuda_device], cfg)
+    launched = smt.sphere_min_t_bwd.launches - before
+    assert launched > 0 if name == "metal" else launched == 0
+    d = np.abs(img_g - img_c).max(axis=1)
+    flipped = d > 1e-4
+    assert flipped.mean() <= 0.01, np.flatnonzero(flipped)
+    if flipped.any():
+        w = (~flipped).astype(np.float32)
+        _, g_c = _grad_step(*made["cpu"], cfg, w)
+        _, g_g = _grad_step(*made[cuda_device], cfg, w)
+    for i, (a, b) in enumerate(zip(g_g, g_c)):
+        assert np.isfinite(a).all() and np.isfinite(b).all(), i
+        assert np.abs(a - b).max() <= 1e-3 * np.abs(b).max() + 1e-6, (i, np.abs(a - b).max())
+
+
+def metal_scene(device):
+    """tests/test_torch_diff.py's metal scene: ground, a DiffuseMetal sphere,
+    a BlinnPhong sphere, a sphere light."""
+    b = SceneBuilder()
+    b.add(ir.Sphere((0.0, -100.5, -1.0), 100.0, ir.Lambertian(ir.Constant((0.5, 0.5, 0.5)))))
+    b.add(ir.Sphere((0.0, 0.0, -1.0), 0.5, ir.DiffuseMetal(30.0, ir.Constant((0.6, 0.3, 0.2)))))
+    b.add(ir.Sphere((-1.0, 0.0, -1.5), 0.4, ir.BlinnPhong(0.4, 20.0, ir.Constant((0.2, 0.6, 0.3)))))
+    b.add(ir.Sphere((2.0, 2.0, 0.0), 0.7, ir.DiffuseLight(ir.Constant((1.0, 1.0, 1.0)), 4.0)),
+          light=True)
+    b.set_background((0.1, 0.1, 0.1))
+    return b.compile(device=device)

@@ -35,7 +35,8 @@ SDL_FILES = sorted(glob.glob(os.path.join(REPO, "sdl", "*.sdl")))
 
 # the framework-free host modules the port carries as copies
 COPIES = ["ir.py", "geometry/transforms.py", "sdl/parser.py", "accel/bvh.py",
-          "accel/native/bvh_builder.cpp", "io/obj.py", "io/preview.py", "scenes/meshes.py"]
+          "accel/native/bvh_builder.cpp", "io/obj.py", "io/preview.py", "scenes/meshes.py",
+          "utils/compare.py"]
 
 
 @pytest.mark.parametrize("path", COPIES)
