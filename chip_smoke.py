@@ -105,7 +105,30 @@ and exits non-zero if any fails:
               800x500@64 depth 8 (one backward pass a cell); (e) the
               inverse-rendering example, EXAMPLE_STEPS Adam(2e-2) steps at
               64x48@16 depth 4, whose loss must fall
-  7. profile  (only with --profile, after the phases above) device time per call
+  7. sharded  the port's sharding (`raysnail_tpu_torch.parallel`) on cuda:0 in
+              a one-rank NCCL group (`distributed.initialize`, `make_mesh`):
+              (a) the sharded frame step on the canonical frame (example.sdl
+              800x500@64, depth 8, seed 0) bit for bit against
+              `make_frame_step`, both timed warm (single, sharded, sharded,
+              single), and the all_reduce of its 400,000 x 3 sums alone
+              (CUDA events) against its bound (the bytes read and written
+              once at the HBM rate); (b) `render_sharded` at the same size
+              against `render_sums` in tile order (SHARD_ATOL), with its
+              peak memory; (c) `render_passes` with the padded sharded step,
+              the sharded frame step and passes=2 at 800x500@16 against the
+              single-device passes (SHARD_ATOL); (d) a `RenderSession`
+              through the padded step cancelled after its first chunk,
+              checkpointed, resumed and finished, against an uninterrupted
+              session: exact; (e) `make_sharded_train_step` at
+              example-fwd+bwd's size, one SGD step of lr 1 (so p0 - p1 is
+              the gradient) against `diff.make_train_step`'s, each leaf
+              within GRAD_RTOL * max|g| + GRAD_ATOL, the seconds of each
+              step, and each step twice on the same inputs: the leaves whose
+              bits differ and the largest difference (held to the same
+              limit); (f) the dry run's forced mesh check
+              (`dryrun.check_mesh_kernel`: K2). K1's and K2's launches in
+              the phase's runs, each read just after its run
+  8. profile  (only with --profile, after the phases above) device time per call
               (device_ms: calls queued behind a spin kernel, CUDA events) of
               sphere_min_t on (a), static book 1, (d) and (e); K1's static
               form against K4 (per ray, packet) on random sphere groups of
@@ -192,6 +215,10 @@ TRAIN_DEPTH = 8
 GRAD_W, GRAD_H, GRAD_SPP, GRAD_DEPTH = 32, 20, 4, 4
 GRAD_RTOL, GRAD_ATOL, FLIP_ATOL, FLIP_SHARE = 1e-3, 1e-6, 1e-4, 0.01
 EXAMPLE_STEPS = 10  # the inverse-rendering example's steps on the card
+# the sharded phase (7): images of the sharded paths against their
+# single-device counterparts (the JAX package's tests' tolerance for two
+# orders of the same sums), and the passes frame's requested spp
+SHARD_ATOL = 2e-5
 # K1b's FP32 operations per ray that hit (compares, selects and negations
 # included, the division and the square root one each), and the moving
 # center's, counted from csrc/sphere_min_t.cu
@@ -836,7 +863,7 @@ def main() -> int:
 
 
 def run(device: torch.device, card: str, profile: bool) -> list:
-    """Phases 2-7 on `device`; -> the kernels' JSON records."""
+    """Phases 2-8 on `device`; -> the kernels' JSON records."""
     from raysnail_tpu_torch import cli, integrator, probes
     from raysnail_tpu_torch.accel.native import build as native
     from raysnail_tpu_torch.config import RenderConfig
@@ -1406,6 +1433,9 @@ def run(device: torch.device, card: str, profile: bool) -> list:
         "static book 1 primary rays": (args_s, {}),
         "(d) moving book 1 primary rays, moving form": (args_d, motion)}, vcfg.t_min, vcfg.t_max)
 
+    # 7. sharded: the port's sharding in a one-rank NCCL group ----------------
+    sharded = sharded_phase(device, card, counters)
+
     if profile:
         smt_cases = {"(a) example.sdl primary rays": (args_a, {}),
                      "static book 1 primary rays": (args_s, {}),
@@ -1538,6 +1568,10 @@ def run(device: torch.device, card: str, profile: bool) -> list:
                     **{f"moving_{k}": moving[k] for k in ("ms", "device_ms", "cold_device_ms",
                                                            "plain_ms", "bound_ms")},
                     "canonical_step_launches": train["canonical"]["launches"]["sphere_min_t_bwd"]})
+    # the sharded phase's launches: K1 in the frame step, K2 in the forced mesh check
+    records[0]["sharded_frame_launches"] = sharded["frame"]["sphere_min_t"]
+    next(r for r in records if r["name"] == "bvh_traverse/tri")["sharded_mesh_launches"] = \
+        sharded["k2"]
     for rec in records:
         rec["library_ms"] = None  # no single PyTorch call computes any of these
         if rec["launches"] == 0:
@@ -1619,14 +1653,7 @@ def grad_parity(make, cfg, device, label: str, counters) -> dict:
         w = (~flipped).astype(np.float32)
         g_c = grad_of_mean(*make("cpu"), cfg, w)[1]
         g_g = grad_of_mean(*make(device), cfg, w)[1]
-    worst = 0.0
-    for i, (a, b) in enumerate(zip(g_g, g_c)):
-        limit = GRAD_RTOL * float(np.abs(b).max()) + GRAD_ATOL
-        d = float(np.abs(a - b).max())
-        worst = max(worst, d / limit)
-        if not (np.isfinite(a).all() and np.isfinite(b).all()) or d > limit:
-            raise AssertionError(f"{label}: leaf {i} of the card's gradient is off the CPU's "
-                                 f"({d} > {limit}) or not finite")
+    worst = leaf_limit_check(f"{label}: the card's gradient against the CPU's", g_g, g_c)
     phase("train", f"{label} {cfg.width}x{cfg.height}@{cfg.effective_samples}spp depth "
           f"{cfg.max_depth}: card against CPU, every leaf within {GRAD_RTOL} * max|g| + "
           f"{GRAD_ATOL} (the largest at {worst!r} of its limit), {int(flipped.sum())} flipped "
@@ -1825,6 +1852,205 @@ def train_phase(device, card: str, counters, gen, k1b_cases, t_min, t_max) -> di
         raise AssertionError("the inverse-rendering example's loss did not fall")
     return {"cases": res, "metal": mstep, "warm": warm, "row": row, "no_remat": no_remat,
             "canonical": canon, "pass1": pass1}
+
+
+def leaf_limit_check(label: str, got: list, want: list) -> float:
+    """Each leaf of `got` within GRAD_RTOL * max|want| + GRAD_ATOL of
+    `want`'s (PERF.md section 2's gradient limit) -> the largest share of
+    its limit a leaf used."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        limit = GRAD_RTOL * float(np.abs(b).max(initial=0.0)) + GRAD_ATOL
+        d = float(np.abs(a - b).max(initial=0.0))
+        worst = max(worst, d / limit)
+        if not (np.isfinite(a).all() and np.isfinite(b).all()) or d > limit:
+            raise AssertionError(f"{label}: leaf {i} differs by {d} > {limit}, or is not finite")
+    return worst
+
+
+def sharded_phase(device, card: str, counters) -> dict:
+    """Phase 7: the sharded paths in a one-rank NCCL group on `device` ->
+    the launch counts of the frame step's and the mesh check's runs."""
+    import torch.distributed as dist
+
+    from raysnail_tpu_torch.config import RenderConfig
+    from raysnail_tpu_torch.diff import make_train_step
+    from raysnail_tpu_torch.diff.params import leaves
+    from raysnail_tpu_torch.painter import RenderSession, RenderState
+    from raysnail_tpu_torch.parallel import (distributed, dryrun, make_mesh,
+                                             make_padded_sharded_step, make_sharded_frame_step,
+                                             make_sharded_train_step, render_sharded)
+    from raysnail_tpu_torch.render import (_tile_grid, _to_image, make_frame_step,
+                                           render_passes, render_sums)
+    from raysnail_tpu_torch.sdl.driver import build_scene
+
+    world = distributed.initialize(device=device)
+    try:
+        mesh = make_mesh()
+        if world != 1 or dist.get_backend() != "nccl" or mesh.device != device:
+            raise AssertionError(f"a one-rank NCCL group on {device} was asked for; got "
+                                 f"{world} rank(s), {dist.get_backend()}, {mesh.device}")
+        phase("sharded", f"one-rank {dist.get_backend()} group on {mesh.device}, mesh "
+              f"{mesh.shape}, NCCL {torch.cuda.nccl.version()}")
+        t_phase = time.perf_counter()
+        out = {}
+
+        # (a) the sharded frame step against make_frame_step, bit for bit
+        cfg = RenderConfig(width=WIDTH, height=HEIGHT, samples=SAMPLES)
+        spp = cfg.effective_samples
+        scene, camera = build_scene(SCENE, cfg, device)
+        single = make_frame_step(scene, cfg)
+        sharded = make_sharded_frame_step(scene, cfg, mesh)
+
+        def timed(step, seed=0):
+            counters.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sums, iterations = step(scene.arrays, camera, seed)
+            torch.cuda.synchronize()
+            return sums, iterations, time.perf_counter() - t0, counters.read()
+
+        a1, it_single, s1, _ = timed(single)
+        b1, it_sharded, t1, out["frame"] = timed(sharded)
+        b2, _, t2, _ = timed(sharded)
+        a2, _, s2, _ = timed(single)
+        same = all(torch.equal(x, y) for x, y in zip(a1, b1))
+        rays = WIDTH * HEIGHT * spp
+        flat = b1.to_array()
+        reduce_ms = time_ms(lambda: dist.all_reduce(flat))
+        reduce_bound = bound(2 * flat.numel() * 4, 0)  # one rank: nothing to add
+        phase("sharded", f"(a) sharded frame step, example.sdl {WIDTH}x{HEIGHT}@{spp}spp depth "
+              f"{cfg.max_depth} on {card}: bit-equal to make_frame_step {same}; walls "
+              f"(single, sharded, sharded, single) {[s1, t1, t2, s2]!r} s; sharded "
+              f"{rays / min(t1, t2) / 1e6!r} Mprimary-rays/s at its best, single "
+              f"{rays / min(s1, s2) / 1e6!r}; shade iterations {it_sharded} (single "
+              f"{it_single}); launches {nonzero(out['frame'])}; all_reduce of "
+              f"{flat.numel()} f32 ({flat.numel() * 4} B) alone: {reduce_ms!r} ms (median of "
+              f"{TIMING_RUNS}, CUDA events), bound {reduce_bound['bound_ms']!r} ms by "
+              f"{reduce_bound['bound_by']}")
+        if not same or out["frame"]["sphere_min_t"] < it_sharded:
+            raise AssertionError("the sharded frame step is not the single-device one's bits, "
+                                 "or did not go through K1")
+
+        # (b) render_sharded against render_sums in tile order
+        px, py, inv = _tile_grid(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        counters.reset()
+        t0 = time.perf_counter()
+        img = render_sharded(scene, camera, cfg, mesh, seed=0)
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = counters.read()
+        t0 = time.perf_counter()
+        ref = _to_image(render_sums(scene, camera, cfg, 0, px, py), cfg)[inv]
+        ref_seconds = time.perf_counter() - t0
+        d = float(np.abs(img - ref.reshape(img.shape)).max())
+        phase("sharded", f"(b) render_sharded {WIDTH}x{HEIGHT}@{spp}spp on {card}: "
+              f"{seconds!r} s (render_sums in tile order {ref_seconds!r} s), max |d| against "
+              f"render_sums {d!r} (<= {SHARD_ATOL}), peak {peak} B allocated above the {base} "
+              f"B live before; launches {nonzero(launches)}; image mean {img.mean()!r}")
+        if d > SHARD_ATOL or not np.isfinite(img).all() or launches["sphere_min_t"] == 0:
+            raise AssertionError("render_sharded is off render_sums or did not go through K1")
+
+        # (c) adaptive passes: the sharded frame step, then the padded step
+        pcfg = cfg.replace(samples=PASSES_SAMPLES, passes=2)
+        pstep = make_padded_sharded_step(scene, pcfg, mesh)
+        counters.reset()
+        t0 = time.perf_counter()
+        img = render_passes(scene, camera, pcfg, seed=0, step=pstep,
+                            k_multiple=mesh.shape["sample"],
+                            frame_step=make_sharded_frame_step(scene, pcfg, mesh))
+        seconds = time.perf_counter() - t0
+        launches = counters.read()
+        ref = render_passes(scene, camera, pcfg, seed=0)
+        d = float(np.abs(img - ref).max())
+        phase("sharded", f"(c) render_passes passes=2 {WIDTH}x{HEIGHT}@"
+              f"{pcfg.effective_samples}spp through the sharded frame step and the padded "
+              f"step on {card}: {seconds!r} s, max |d| against the single-device passes {d!r} "
+              f"(<= {SHARD_ATOL}, bit-equal {d == 0.0}); launches {nonzero(launches)}")
+        if d > SHARD_ATOL or not np.isfinite(img).all():
+            raise AssertionError("the sharded passes are off the single-device passes")
+
+        # (d) a checkpointed RenderSession through the padded step, resumed
+        km = mesh.shape["sample"]
+        scfg = pcfg.replace(ray_batch=4 * WIDTH * HEIGHT)  # chunks of 4 cells
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "state.npz")
+            RenderSession(scene, camera, scfg, seed=3, checkpoint_path=path, step=pstep,
+                          k_multiple=km).render(target=lambda done, total, im: False)
+            dist.barrier()
+            state = RenderState.load(path)
+        t0 = time.perf_counter()
+        resumed = RenderSession(scene, camera, scfg, seed=3, step=pstep,
+                                k_multiple=km).render(resume=state)
+        seconds = time.perf_counter() - t0
+        full = RenderSession(scene, camera, scfg, seed=3, step=pstep, k_multiple=km).render()
+        d = float(np.abs(resumed - full).max())
+        phase("sharded", f"(d) RenderSession {WIDTH}x{HEIGHT}@{pcfg.effective_samples}spp "
+              f"through the padded step: checkpoint at {state.samples_done} of "
+              f"{pcfg.effective_samples} cells, resumed in {seconds!r} s, max |d| against an "
+              f"uninterrupted session {d!r} (exact: 0)")
+        if not 0 < state.samples_done < scfg.effective_samples or d != 0.0:
+            raise AssertionError("the sharded checkpoint resume is not exact")
+
+        # (e) one SGD step of lr 1 (p0 - p1 is the gradient), sharded and
+        # single-device, each twice on the same inputs
+        tcfg = RenderConfig(width=TRAIN_W, height=TRAIN_H, samples=TRAIN_SPP,
+                            max_depth=TRAIN_DEPTH)
+        tscene, tcam = build_scene(SCENE, tcfg, device)
+        target = np.zeros((TRAIN_H, TRAIN_W, 3), np.float32)
+        sgd = lambda xs: torch.optim.SGD(xs, lr=1.0)  # noqa: E731
+        grads, losses, walls = {}, {}, {}
+        step1, st1, p0 = make_train_step(tscene, tcam, tcfg, target, optimizer=sgd)
+        stepn, stn, _ = make_sharded_train_step(tscene, tcam, tcfg, target, mesh, optimizer=sgd)
+        base = [x.detach() for x in leaves(p0)]
+        runs = (("single", lambda: step1(p0, st1, 1, np.arange(tcfg.effective_samples))),
+                ("sharded", lambda: stepn(p0, stn, 1)))
+        for label, run_step in runs + runs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p1, _, loss = run_step()
+            torch.cuda.synchronize()
+            walls.setdefault(label, []).append(time.perf_counter() - t0)
+            losses.setdefault(label, []).append(float(loss))
+            grads.setdefault(label, []).append([(x0 - x).cpu().numpy()
+                                                for x0, x in zip(base, leaves(p1))])
+        worst = leaf_limit_check("sharded train step against make_train_step",
+                                 grads["sharded"][0], grads["single"][0])
+        spread = {}
+        for label, (g_a, g_b) in grads.items():
+            n_diff = sum(not np.array_equal(a, b) for a, b in zip(g_a, g_b))
+            dmax = max(float(np.abs(a - b).max(initial=0.0)) for a, b in zip(g_a, g_b))
+            spread[label] = (n_diff, dmax, leaf_limit_check(f"{label} step run twice", g_b, g_a))
+        trays = TRAIN_W * TRAIN_H * tcfg.effective_samples
+        phase("sharded", f"(e) make_sharded_train_step {TRAIN_W}x{TRAIN_H}@"
+              f"{tcfg.effective_samples}spp depth {TRAIN_DEPTH}, one SGD(1.0) step, on {card}: "
+              f"walls (s) {walls}, sharded {trays / min(walls['sharded']) / 1e6!r} Mrays/s "
+              f"fwd+bwd at its best; losses {losses}; every leaf of the sharded gradient "
+              f"within {GRAD_RTOL} * max|g| + {GRAD_ATOL} of make_train_step's (the largest "
+              f"at {worst!r} of its limit); run twice: (leaves whose bits differ of 10, "
+              f"largest difference, share of the limit) {spread}")
+        if not np.isclose(losses["sharded"][0], losses["single"][0], rtol=1e-4):
+            raise AssertionError(f"the sharded loss is off the single-device one: {losses}")
+
+        # (f) the dry run's forced mesh check: K2
+        counters.reset()
+        sums = dryrun.check_mesh_kernel(mesh)
+        torch.cuda.synchronize()
+        out["mesh"] = counters.read()
+        phase("sharded", f"(f) dryrun.check_mesh_kernel (uv-sphere, mesh_pallas='force') "
+              f"on {card}: sums finite, mean {float(sums.mean())!r}; launches "
+              f"{nonzero(out['mesh'])}")
+        out["k2"] = sum(v for k, v in out["mesh"].items()
+                        if k.startswith("bvh_traverse/") and "/tri" in k)
+        if out["k2"] == 0:
+            raise AssertionError("the sharded mesh check did not launch K2")
+        phase("sharded", f"phase in {time.perf_counter() - t_phase:.1f} s")
+        return out
+    finally:
+        dist.destroy_process_group()
 
 
 def _dev_us(e) -> float:

@@ -63,9 +63,11 @@ def _target(target, cfg: RenderConfig, device) -> Vec3:
 
 
 def render_image_diff(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
-                      params: SceneParams, seed: int, sample_ids) -> Vec3:
+                      params: SceneParams, seed: int, sample_ids, px=None,
+                      py=None) -> Vec3:
     """Differentiable mean-radiance image (flat (H*W,) Vec3, row-major,
-    linear: no gamma) over the given stratification cells.
+    linear: no gamma) over the given stratification cells; given a pixel
+    list (px, py), the (P,) image of those pixels.
 
     As in the JAX package, the sphere sweep stays on the dense route (the
     BVH route is detached) and the bounces run the scan integrator, whose
@@ -73,7 +75,8 @@ def render_image_diff(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
     sphere_bvh="never", path_regen="never"."""
     cfg = cfg.replace(use_pallas="never", sphere_bvh="never", path_regen="never")
     arrays = inject_params(scene.arrays, params)
-    px, py = _pixels(cfg, scene.device)
+    if px is None:
+        px, py = _pixels(cfg, scene.device)
     ids = _ids(sample_ids)
     sums = renderlib.sample_sums(scene, cfg, arrays, camera, seed, ids, px, py)
     return sums * (1.0 / ids.size)

@@ -58,16 +58,23 @@ class RenderSession:
 
     target(done_cells, total_cells, partial_image) plays the role of the
     reference's PainterTarget row stream (painter.rs:23-26); returning False
-    from it cancels the render."""
+    from it cancels the render.
+
+    `step` replaces the single-device sample step: a sharded step
+    (`parallel.make_padded_sharded_step`) with `k_multiple` = the mesh's
+    sample-axis size streams and checkpoints a render that runs on several
+    ranks. There, give `checkpoint_path` on one rank only."""
 
     def __init__(self, scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
-                 seed: int = 0, checkpoint_path: Optional[str] = None):
+                 seed: int = 0, checkpoint_path: Optional[str] = None,
+                 step=None, k_multiple: int = 1):
         self.scene = scene
         self.camera = camera
         self.cfg = cfg
         self.seed = seed
         self.checkpoint_path = checkpoint_path
-        self.step = renderlib.make_sample_step(scene, cfg)
+        self.step = step if step is not None else renderlib.make_sample_step(scene, cfg)
+        self.k_multiple = k_multiple
         self.px, self.py, self._inv = renderlib._tile_grid(cfg)
         self.rays_traced = 0
         self.wall_seconds = 0.0
@@ -85,7 +92,8 @@ class RenderSession:
         n_pix = cfg.width * cfg.height
         # cap the dispatch size so that callbacks and checkpoints fire at a
         # useful cadence
-        k = renderlib._sample_chunks(cfg, n_pix, budget=min(cfg.ray_batch, 1 << 21))
+        k = renderlib._sample_chunks(cfg, n_pix, self.k_multiple,
+                                     budget=min(cfg.ray_batch, 1 << 21))
 
         if resume is not None:
             accum_np, start_cell = resume.accum, resume.samples_done

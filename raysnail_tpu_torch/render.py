@@ -165,14 +165,20 @@ def _sample_chunks(cfg: RenderConfig, n_pix: int, multiple_of: int = 1,
     return max(good) if good else multiple_of
 
 
-def render_sums(scene, camera, cfg, seed, px, py, step=None, arrays=None) -> Vec3:
-    """Radiance SUMS over all effective samples for the given pixel list."""
+def render_sums(scene, camera, cfg, seed, px, py, step=None, arrays=None,
+                k_multiple: int = 1) -> Vec3:
+    """Radiance SUMS over all effective samples for the given pixel list.
+    `k_multiple` (a sharded step's sample-axis size) makes every chunk of
+    cells a multiple of it; spp must divide by it."""
     spp = cfg.effective_samples
+    if spp % k_multiple:
+        raise ValueError(f"effective spp {spp} must divide by the sample-axis size "
+                         f"{k_multiple} for a sharded step")
     step = step or make_sample_step(scene, cfg)
     arrays = arrays if arrays is not None else scene.arrays
     px = torch.as_tensor(px, dtype=cfg.dtype, device=scene.device)
     py = torch.as_tensor(py, dtype=cfg.dtype, device=scene.device)
-    k = _sample_chunks(cfg, px.shape[0])
+    k = _sample_chunks(cfg, px.shape[0], k_multiple)
     accum = None
     for start in range(0, spp, k):
         sums = step(arrays, camera, seed, np.arange(start, start + k), px, py)
@@ -186,18 +192,26 @@ def _to_image(accum: Vec3, cfg: RenderConfig) -> np.ndarray:
     return img.to_array().cpu().numpy()
 
 
+def _first_pass(scene, camera, cfg, seed, arrays, frame, step=None,
+                k_multiple: int = 1) -> np.ndarray:
+    """One full frame -> (H, W, 3) display image: through `frame` (row-major
+    sums) where it is given, else the sample step over every pixel in tile
+    order."""
+    if frame is not None:
+        accum, _ = frame(arrays if arrays is not None else scene.arrays, camera, seed)
+        return _to_image(accum, cfg).reshape(cfg.height, cfg.width, 3)
+    px, py, inv = _tile_grid(cfg)
+    accum = render_sums(scene, camera, cfg, seed, px, py, step=step, arrays=arrays,
+                        k_multiple=k_multiple)
+    return _to_image(accum, cfg)[inv].reshape(cfg.height, cfg.width, 3)
+
+
 def render(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
            seed: int = 0, arrays=None) -> np.ndarray:
     """Single-pass full frame -> (H, W, 3) float32 display image (numpy):
     the frame step, or where it does not apply the sample-step path over
     every pixel in tile order."""
-    frame = make_frame_step(scene, cfg)
-    if frame is not None:
-        accum, _ = frame(arrays if arrays is not None else scene.arrays, camera, seed)
-        return _to_image(accum, cfg).reshape(cfg.height, cfg.width, 3)
-    px, py, inv = _tile_grid(cfg)
-    accum = render_sums(scene, camera, cfg, seed, px, py, arrays=arrays)
-    return _to_image(accum, cfg)[inv].reshape(cfg.height, cfg.width, 3)
+    return _first_pass(scene, camera, cfg, seed, arrays, make_frame_step(scene, cfg))
 
 
 # -- multi-pass adaptive oversampling ---------------------------------------
@@ -238,21 +252,30 @@ def calc_noise(img: np.ndarray, compat_bug: bool = False) -> np.ndarray:
 
 def render_passes(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
                   seed: int = 0, arrays=None,
-                  progress: Optional[Callable] = None) -> np.ndarray:
+                  progress: Optional[Callable] = None,
+                  step=None, k_multiple: int = 1, frame_step=None) -> np.ndarray:
     """Multi-pass render with adaptive oversampling (raysnail.rs:379-427):
-    the first pass is `render`'s full frame; pass k re-renders the pixels whose
-    noise reaches cfg.noise_threshold, in tile order through the sample
-    step, with seed + k, and running-averages display colors
-    (old*k + new)/(k+1). `progress(done, total, img)` is called after each
-    pass; returning False cancels."""
+    pass k re-renders the pixels whose noise reaches cfg.noise_threshold, in
+    tile order through the sample step, with seed + k, and running-averages
+    display colors (old*k + new)/(k+1). `progress(done, total, img)` is
+    called after each pass; returning False cancels.
+
+    `step` may be a sharded sample step (`parallel.make_padded_sharded_step`)
+    with `k_multiple` = the mesh's sample-axis size, so that every pass runs
+    on the ranks. The first pass is `frame_step`'s frame where it is given
+    (`parallel.make_sharded_frame_step`); else, with a `step` or a
+    k_multiple > 1, `render_sums` in tile order through that step; else
+    `render`'s full frame, as in the JAX package. On several ranks every
+    rank gets the same bits of every pass, so every rank reaches the same
+    noise mask and the ranks' collectives stay in step."""
     spp = cfg.effective_samples
     h, w = cfg.height, cfg.width
-    img = render(scene, camera, cfg, seed=seed, arrays=arrays)
+    frame = frame_step if frame_step is not None else (
+        make_frame_step(scene, cfg) if step is None and k_multiple == 1 else None)
+    step = step or make_sample_step(scene, cfg)
+    img = _first_pass(scene, camera, cfg, seed, arrays, frame, step, k_multiple)
     if progress is not None and progress(spp, spp * cfg.passes, img) is False:
         return img
-    if cfg.passes == 1:
-        return img
-    step = make_sample_step(scene, cfg)
     px_full, py_full = _full_grid(cfg)
     for k in range(1, cfg.passes):
         redo = calc_noise(img, cfg.compat_noise_bug) >= cfg.noise_threshold
@@ -262,7 +285,7 @@ def render_passes(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
         # tile-coherent dispatch order for the sparse active set too
         idx = idx[np.argsort(_tile_key(px_full[idx], py_full[idx], w), kind="stable")]
         sums = render_sums(scene, camera, cfg, seed + k, px_full[idx], py_full[idx],
-                           step=step, arrays=arrays)
+                           step=step, arrays=arrays, k_multiple=k_multiple)
         flat = img.reshape(-1, 3)
         flat[idx] = (flat[idx] * k + _to_image(sums, cfg)) / (k + 1.0)
         img = flat.reshape(h, w, 3)

@@ -49,6 +49,24 @@ def test_copied_modules_equal_their_originals(path):
     assert copy.replace("raysnail_tpu_torch", "raysnail_tpu") == original
 
 
+# functions the port carries as copies inside modules of its own
+COPIED_FUNCTIONS = [("parallel/mesh.py", "_factor")]
+
+
+@pytest.mark.parametrize("path,name", COPIED_FUNCTIONS)
+def test_copied_functions_equal_their_originals(path, name):
+    """Each copied function's source is its original's, character for
+    character."""
+    def source(root):
+        with open(os.path.join(root, path)) as f:
+            text = f.read()
+        node = next(n for n in ast.parse(text).body
+                    if isinstance(n, ast.FunctionDef) and n.name == name)
+        return ast.get_source_segment(text, node)
+
+    assert source(PORT) == source(os.path.join(REPO, "raysnail_tpu"))
+
+
 def _plain(x):
     """IR -> nested tuples of (class name, fields) and plain values, so the
     two packages' IR classes compare by content."""
