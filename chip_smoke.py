@@ -9,7 +9,8 @@ and exits non-zero if any fails:
   1. device   require CUDA; print the card's name and power limit
   2. build    build every kernel from csrc/ with nvcc (sphere_min_t.cu, K1
               and its backward K1b; bvh_traverse.cu, bvh_packet.cu,
-              bvh_probes.cu, mandelbulb_march.cu), and the host BVH builder
+              bvh_probes.cu, mandelbulb_march.cu; rows_select.cu, K7 and
+              K7b), and the host BVH builder
               with g++, all started together; the seconds, and
               each kernel's registers and spills (-Xptxas -v); the sphere
               kernel's launch shape, occupancy and waves at 400,000 rays
@@ -42,7 +43,16 @@ and exits non-zero if any fails:
               Every traversal probe (ray I/O, walk, sweep, walk latency, the
               V0-V8 bisect) against its plain version, on the probes' own
               case knot-9600 and on mesh-200k: integers and min-t bit for
-              bit, the near accumulator within probes.ACC_RTOL
+              bit, the near accumulator within probes.ACC_RTOL. The rows'
+              select K7 and its fixed-order transpose K7b on the material
+              rows of the hits of example.sdl's and the static book 1
+              frame's primary rays (K = 4), and on book 1's rows spread
+              over 1,024 (K = 4) and 4,096 rows (K = 6): K7 bit for bit
+              against its plain version and index_select, K7b bit for bit
+              against its plain version on two calls; call, device (warm
+              and L2-cold) and plain ms, the library calls (index_select;
+              index_add, also under torch.use_deterministic_algorithms,
+              and whether each repeats its bits) and the bounds
   4. golden   the anchors example.sdl, mesh, mesh-binned, boxfield-kernel,
               book1-spherebvh, book1, cornell, quadric.sdl, csg.sdl and
               mandelbulb on the card, against the committed
@@ -54,7 +64,8 @@ and exits non-zero if any fails:
   5. main     the probes' entry point, probes.main(["all", "--case",
               "mesh-200k"]), with every probe's launch count read after it;
               the canonical frame, example.sdl at 800x500@64spp (a warm-up
-              through the CLI, then a timed run of the same calls); one
+              through the CLI, then a timed run of the same calls, which
+              must launch K7 in every shade iteration); one
               sdl/transforms.sdl frame (its ellipsoid is a quadric) and one
               book 1 frame with moving balls and an open shutter, both at
               800x500@16spp; the mesh-200k frame, a 204,800-triangle knot at
@@ -95,14 +106,22 @@ and exits non-zero if any fails:
               GRAD_ATOL, flipped pixels left out), and tests/test_diff.py's
               mesh scene: K2 runs, every gradient finite; one Adam step of
               the metal scene at 400x250@16, depth 8, whose bounce rays' t
-              reaches the gradient through K1b (K1b's main-path launches);
+              reaches the gradient through K1b (K1b's main-path launches),
+              run twice on the same inputs: the same bits in all 10
+              leaves (as int32 patterns: the lobes' NaN traps included);
               (c) bench.py's example-fwd+bwd row, 400x250@16 depth 8,
               Adam(1e-2), a zero target: a warm-up step, then TRAIN_STEPS
               timed steps (seconds a step, Mrays/s fwd+bwd, the loss, the
               peak memory, the launches a step), K1's launches split into
               pass 1, the cells' forward and their recompute, and a step
               without remat for its peak memory; (d) the canonical step,
-              800x500@64 depth 8 (one backward pass a cell); (e) the
+              800x500@64 depth 8 (one backward pass a cell), the launches
+              of one of its cells, the cell under the profiler, and its
+              backward pass alone under the profiler beside the metal
+              scene's cell at the same size: no index_add op or kernel
+              (nor index_put's accumulating kernel) may run there; K7b's
+              and K1b's device time in place, K1b's against its bound for
+              the rays of its calls; (e) the
               inverse-rendering example, EXAMPLE_STEPS Adam(2e-2) steps at
               64x48@16 depth 4, whose loss must fall
   7. sharded  the port's sharding (`raysnail_tpu_torch.parallel`) on cuda:0 in
@@ -123,9 +142,9 @@ and exits non-zero if any fails:
               example-fwd+bwd's size, one SGD step of lr 1 (so p0 - p1 is
               the gradient) against `diff.make_train_step`'s, each leaf
               within GRAD_RTOL * max|g| + GRAD_ATOL, the seconds of each
-              step, and each step twice on the same inputs: the leaves whose
-              bits differ and the largest difference (held to the same
-              limit); (f) the dry run's forced mesh check
+              step, and each step twice on the same inputs: the same bits in
+              all 10 leaves, or the phase fails; (f) the dry run's forced
+              mesh check
               (`dryrun.check_mesh_kernel`: K2). K1's and K2's launches in
               the phase's runs, each read just after its run
   8. profile  (only with --profile, after the phases above) device time per call
@@ -352,6 +371,96 @@ def check_sphere_kernel(args, t_min, t_max, label: str, time_it: bool, motion=No
         raise AssertionError(f"sphere_min_t {label}: kernel disagrees with the plain "
                              f"version (max|dt|={err}, idx_equal={same_idx})")
     return out, (t_k, i_k)
+
+
+ROWS_1024, ROWS_4096 = 1024, 4096  # K7b's row counts beside the scenes' (its cost by R)
+
+
+def hit_rows(scene, ray, cfg) -> torch.Tensor:
+    """The material row of each ray's closest hit (row 0 where it missed),
+    int64: the indices that `materials.gather` selects with."""
+    from raysnail_tpu_torch import scene as scene_mod
+
+    hit = scene_mod.intersect(scene, scene.arrays, ray, cfg.t_min, cfg.t_max)
+    return torch.clamp_min(hit.mat_id, 0).long().contiguous()
+
+
+def check_rows_select(idx, rows: int, k: int, gen, label: str) -> dict:
+    """K7 and K7b against their plain versions on `idx` (N,) int64 with a
+    seeded (rows, k) table and (N, k) cotangent, passed to the wrappers as
+    their k strided columns: K7 bit-equal to the plain
+    gather and to index_select; K7b bit-equal to its plain version, and to
+    itself on a second call. Call, device (warm and L2-cold) and plain ms;
+    the library calls' ms: index_select for K7; index(0, idx, g) into zeros
+    (index_add_'s out-of-place form) for K7b, also under
+    torch.use_deterministic_algorithms(True), and whether each repeats its
+    bits; each kernel's bound (the index, the rays' K columns and the
+    table's once)."""
+    from raysnail_tpu_torch.ops import rows_select as rs
+
+    n, device = idx.shape[0], idx.device
+    table = torch.randn(rows, k, generator=gen, device=device)
+    g = torch.randn(n, k, generator=gen, device=device)
+    zeros = torch.zeros(rows, k, device=device)
+    cols, gs = table.unbind(1), g.unbind(1)
+    fwd = lambda: rs.rows_select(cols, idx)  # noqa: E731
+    bwd = lambda: rs.rows_select_bwd(gs, idx, rows)  # noqa: E731
+    add = lambda: zeros.index_add(0, idx, g)  # noqa: E731
+    with counts_kept():
+        out, grads = torch.stack(fwd(), 1), [torch.stack(bwd(), 1) for _ in range(2)]
+        want_out = rs.rows_select_plain(table, idx)
+        want = rs.rows_select_bwd_plain(g, idx, rows)
+        added = [add(), add()]
+        torch.cuda.synchronize()
+        fwd_same = torch.equal(out, want_out) and torch.equal(
+            out, torch.index_select(table, 0, idx))
+        bwd_same = all(torch.equal(x, want) for x in grads)
+        n_bytes = n * 8 + n * k * 4 + rows * k * 4
+        res = {"rows": rows, "columns": k, "rays": n,
+               "fwd_bit_equal": fwd_same, "bwd_bit_equal": bwd_same,
+               "max_abs_err": max(float((out - want_out).abs().max()),
+                                  float((grads[0] - want).abs().max())),
+               "fwd": {"ms": time_ms(fwd), "device_ms": device_ms(fwd),
+                       "cold_device_ms": device_ms(fwd, cold=True),
+                       "plain_ms": time_ms(lambda: rs.rows_select_plain(table, idx)),
+                       "library_ms": time_ms(lambda: torch.index_select(table, 0, idx)),
+                       **bound(n_bytes, 0)},
+               "bwd": {"ms": time_ms(bwd), "device_ms": device_ms(bwd),
+                       "cold_device_ms": device_ms(bwd, cold=True),
+                       "plain_ms": time_ms(lambda: rs.rows_select_bwd_plain(g, idx, rows),
+                                           PLAIN_RUNS),
+                       "library_ms": time_ms(add),
+                       "library_repeats": torch.equal(*added),
+                       "library_max_abs_diff": float((added[0] - want).abs().max()),
+                       **bound(n_bytes, n * k)}}
+        torch.use_deterministic_algorithms(True)
+        try:
+            det = [add(), add()]
+            torch.cuda.synchronize()
+            res["bwd"].update(deterministic_library_ms=time_ms(add),
+                              deterministic_library_repeats=torch.equal(*det))
+        except RuntimeError as e:
+            res["bwd"].update(deterministic_library_ms=None,
+                              deterministic_library_raises=str(e).splitlines()[0][:160])
+        finally:
+            torch.use_deterministic_algorithms(False)
+    f, b = res["fwd"], res["bwd"]
+    phase("kernels", f"rows_select {label}: N={n} R={rows} K={k}: K7 bit-equal to the plain "
+          f"gather and index_select {fwd_same}, K7b bit-equal to its plain version on two "
+          f"calls {bwd_same}; K7 call {f['ms']!r} ms, device {f['device_ms']!r} ms (L2 cold "
+          f"{f['cold_device_ms']!r}), plain {f['plain_ms']!r}, index_select "
+          f"{f['library_ms']!r}, bound {f['bound_ms']!r} ms by {f['bound_by']}; K7b call "
+          f"{b['ms']!r} ms, device {b['device_ms']!r} ms (L2 cold {b['cold_device_ms']!r}), "
+          f"plain {b['plain_ms']!r}, index_add {b['library_ms']!r} (repeats its bits "
+          f"{b['library_repeats']}, max |d| from K7b {b['library_max_abs_diff']!r}), "
+          f"deterministic index_add "
+          f"{b.get('deterministic_library_ms')!r} (repeats "
+          f"{b.get('deterministic_library_repeats')}, raises "
+          f"{b.get('deterministic_library_raises')!r}), bound {b['bound_ms']!r} ms by "
+          f"{b['bound_by']}")
+    if not (fwd_same and bwd_same):
+        raise AssertionError(f"rows_select {label}: a kernel disagrees with its plain version")
+    return res
 
 
 def root_stats(args, motion) -> dict:
@@ -821,14 +930,17 @@ class Counters:
         from raysnail_tpu_torch.ops import bvh_probes as bp
         from raysnail_tpu_torch.ops import bvh_traverse as bt
         from raysnail_tpu_torch.ops import mandelbulb_march as mm
+        from raysnail_tpu_torch.ops import rows_select as rs
         from raysnail_tpu_torch.ops import sphere_min_t as smt
         self.smt, self.bt, self.bp = smt.sphere_min_t, bt.bvh_traverse, bp
         self.mm = mm.mandelbulb_march
         self.bwd = smt.sphere_min_t_bwd
+        self.rs, self.rs_bwd = rs.rows_select, rs.rows_select_bwd
 
     def reset(self):
         self.smt.launches = self.smt.moving_launches = self.mm.launches = 0
         self.bwd.launches = self.bwd.moving_launches = 0
+        self.rs.launches = self.rs_bwd.launches = 0
         self.bt.launches = {k: 0 for k in self.bt.launches}
         for k in self.bp.launches:
             self.bp.launches[k] = 0
@@ -839,6 +951,8 @@ class Counters:
                 "sphere_min_t_bwd": self.bwd.launches,
                 "sphere_min_t_bwd/moving": self.bwd.moving_launches,
                 "mandelbulb_march": self.mm.launches,
+                "rows_select": self.rs.launches,
+                "rows_select_bwd": self.rs_bwd.launches,
                 **{f"bvh_traverse/{k}": v for k, v in self.bt.launches.items()},
                 **{f"probe/{k}": v for k, v in self.bp.launches.items()}}
 
@@ -871,6 +985,7 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     from raysnail_tpu_torch.ops import bvh_probes as bp
     from raysnail_tpu_torch.ops import bvh_traverse as bt
     from raysnail_tpu_torch.ops import mandelbulb_march as mm
+    from raysnail_tpu_torch.ops import rows_select as rs
     from raysnail_tpu_torch.ops import sphere_min_t as smt
     from raysnail_tpu_torch.geometry import spheres as sphlib
     from raysnail_tpu_torch import render as render_mod
@@ -889,6 +1004,7 @@ def run(device: torch.device, card: str, profile: bool) -> list:
             "bvh_packet.cu": lambda: bt.build_packet(verbose=True),
             "bvh_probes.cu": lambda: bp.build(verbose=True),
             "mandelbulb_march.cu": lambda: mm.build(verbose=True),
+            "rows_select.cu": lambda: rs.build(verbose=True),
             "bvh_builder.cpp": native.build}
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {name: pool.submit(job) for name, job in jobs.items()}
@@ -967,6 +1083,32 @@ def run(device: torch.device, card: str, profile: bool) -> list:
           f"(shutter times up to {float(vray.time.max())!r})")
     if not vscene.static.moving or vsph.pk_bb is not None or moved == 0:
         raise AssertionError("the moving book 1 scene does not move, or it was packed")
+
+    # K7 and K7b (the rows' select and its fixed-order transpose): the
+    # material rows of example.sdl's and the static book 1 frame's primary
+    # rays' hits (K = 4, materials.gather), example.sdl's texture rows of
+    # the same hits (K = 3, the base color; K = 6, the checker's two
+    # colors), and the book 1 rows spread over 1,024 and 4,096 rows
+    idx_ex = hit_rows(scene, ray, cfg)
+    tex_ex = torch.clamp_min(scene.arrays.materials.tex_id[idx_ex], 0).long()
+    n_tex = scene.arrays.textures.ttype.shape[0]
+    idx_b1 = hit_rows(sscene, sray, vcfg)
+    n_b1 = sscene.arrays.materials.mtype.shape[0]
+    spread = lambda rows: (idx_b1 * rows) // n_b1 + torch.randint(  # noqa: E731
+        0, rows // n_b1, idx_b1.shape, generator=gen, device=device)
+    res_rows = {
+        "example.sdl": check_rows_select(idx_ex, scene.arrays.materials.mtype.shape[0], 4,
+                                         gen, "example.sdl primary rays' material rows"),
+        "textures3": check_rows_select(tex_ex, n_tex, 3, gen,
+                                       "example.sdl primary rays' texture rows, K = 3"),
+        "textures6": check_rows_select(tex_ex, n_tex, 6, gen,
+                                       "example.sdl primary rays' texture rows, K = 6"),
+        "book1": check_rows_select(idx_b1, n_b1, 4, gen,
+                                   "static book 1 primary rays' material rows"),
+        "1024": check_rows_select(spread(ROWS_1024), ROWS_1024, 4, gen,
+                                  f"book 1's rows spread over {ROWS_1024}"),
+        "4096": check_rows_select(spread(ROWS_4096), ROWS_4096, 6, gen,
+                                  f"book 1's rows spread over {ROWS_4096}, K = 6")}
 
     # the Mandelbulb march (K6): the mandelbulb-passes4 camera's primary rays
     # in tile order, then their bounce rays in place
@@ -1178,6 +1320,11 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     if smt_launches < iterations or iterations < chunks:
         raise AssertionError(f"sphere_min_t ran {smt_launches} times in {iterations} shade "
                              "iterations: the render did not go through the kernel")
+    # the materials' select, the base color's and the checker's colors'
+    k7_launches = launches["rows_select"]
+    if k7_launches < 3 * iterations:
+        raise AssertionError(f"rows_select ran {k7_launches} times in {iterations} shade "
+                             "iterations: the bounce body did not select its rows with K7")
 
     # passes=2 through render_passes: the full frame step, then the noisy
     # pixels again through the tile-ordered sample step
@@ -1567,13 +1714,40 @@ def run(device: torch.device, card: str, profile: bool) -> list:
                                                           "bound_ms")},
                     **{f"moving_{k}": moving[k] for k in ("ms", "device_ms", "cold_device_ms",
                                                            "plain_ms", "bound_ms")},
-                    "canonical_step_launches": train["canonical"]["launches"]["sphere_min_t_bwd"]})
+                    "canonical_step_launches": train["canonical"]["launches"]["sphere_min_t_bwd"],
+                    # in place: the metal cell's backward pass (torch.profiler)
+                    **{f"in_place_{k}": train["metal_bwd"]["K1b"][k]
+                       for k in ("launches", "device_ms", "ms_a_launch", "bound_ms",
+                                 "half_of_bound")}})
+    # K7 and K7b at example.sdl's material rows (K = 4), with book 1's rows,
+    # 1,024 and 4,096 beside them; K7's launches in the canonical frame, K7b's
+    # in the canonical train step, and each one's in one of its cells
+    cell = train["cell_launches"]
+    for key, name, launches, line in (
+            ("fwd", "rows_select", k7_launches, "102"),
+            ("bwd", "rows_select_bwd", train["canonical"]["launches"]["rows_select_bwd"], "102")):
+        ex = res_rows["example.sdl"][key]
+        records.append({
+            "name": name, "route": "cuda", "source": src + "rows_select.cu",
+            "replaces": "raysnail_tpu/geometry/hit.py:" + line, "launches": launches,
+            "launches_a_cell": cell[name],
+            "max_abs_err": max(r["max_abs_err"] for r in res_rows.values()),
+            **{k: ex[k] for k in ("ms", "device_ms", "cold_device_ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms")},
+            **{f"{case}_{k}": r[key][k] for case, r in res_rows.items() if case != "example.sdl"
+               for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")},
+            **({"deterministic_library_ms": ex.get("deterministic_library_ms"),
+                "library_repeats": ex["library_repeats"],
+                "in_place_canonical_device_ms": train["canonical_bwd"]["K7b"]["device_ms"],
+                "in_place_canonical_launches": train["canonical_bwd"]["K7b"]["launches"]}
+               if key == "bwd" else {})})
     # the sharded phase's launches: K1 in the frame step, K2 in the forced mesh check
     records[0]["sharded_frame_launches"] = sharded["frame"]["sphere_min_t"]
     next(r for r in records if r["name"] == "bvh_traverse/tri")["sharded_mesh_launches"] = \
         sharded["k2"]
     for rec in records:
-        rec["library_ms"] = None  # no single PyTorch call computes any of these
+        # none but K7's and K7b's: no single PyTorch call computes the others
+        rec.setdefault("library_ms", None)
         if rec["launches"] == 0:
             raise AssertionError(f"{rec['name']} was launched by no main-path run")
     return records
@@ -1721,7 +1895,8 @@ def train_steps(scene, camera, cfg, seeds, counters, label: str, card: str, may_
                if set(rows) <= set(dict(may_trap).get(i, ()))}
     out = {"seconds": seconds, "s_per_step": seconds / len(seeds),
            "mrays_fwd_bwd": rays / seconds / 1e6, "loss": loss, "launches": launches,
-           "per_step": per_step, "peak_bytes": peak, "non_finite": bad}
+           "per_step": per_step, "peak_bytes": peak, "non_finite": bad,
+           "params": [x.detach().clone() for x in leaves(params)]}
     phase("train", f"{label} {cfg.width}x{cfg.height}@{cfg.effective_samples}spp depth "
           f"{cfg.max_depth} on {card}: {len(seeds)} step(s) in {seconds!r} s, "
           f"{out['s_per_step']!r} s a step, {out['mrays_fwd_bwd']!r} Mrays/s fwd+bwd, loss "
@@ -1796,6 +1971,15 @@ def train_phase(device, card: str, counters, gen, k1b_cases, t_min, t_max) -> di
                         "metal train step (K1b's main path)", card, may_trap=lobes)
     if mstep["launches"]["sphere_min_t_bwd"] == 0:
         raise AssertionError("the metal train step did not launch K1b")
+    # run twice on the same inputs: the same bits in every leaf (NaN traps
+    # compared as bit patterns)
+    again = train_steps(mscene, metal_camera(tcfg, device), tcfg, [0], counters,
+                        "metal train step, again", card, may_trap=lobes)
+    differ = bits_differ(mstep["params"], again["params"])
+    phase("train", f"metal train step run twice on the same inputs: leaves whose bits differ "
+          f"{differ} of {len(mstep['params'])}")
+    if differ:
+        raise AssertionError(f"the metal train step does not repeat its bits: leaves {differ}")
 
     # (c) bench.py's example-fwd+bwd row: a warm-up step, then TRAIN_STEPS
     scene, camera = build_scene(SCENE, tcfg, device)
@@ -1826,20 +2010,50 @@ def train_phase(device, card: str, counters, gen, k1b_cases, t_min, t_max) -> di
     canon = train_steps(cscene, ccam, ccfg, [1], counters, "example-fwd+bwd-800x500", card)
     # one of its cells, forward (with the recompute) and backward, under the
     # profiler: where the step's time goes
-    def cell():
-        p = extract_params(cscene.arrays)
-        img = render_image_diff(cscene, ccam, ccfg, p, 1, [0])
-        torch.mean(img.x + img.y + img.z).backward()
+    def cell_loss(sc, cam):
+        p = extract_params(sc.arrays)
+        img = render_image_diff(sc, cam, ccfg, p, 1, [0])
+        return torch.mean(img.x + img.y + img.z)
 
+    cell = lambda: cell_loss(cscene, ccam).backward()  # noqa: E731
     cell()
     torch.cuda.synchronize()
+    counters.reset()
     t0 = time.perf_counter()
     cell()
     torch.cuda.synchronize()
+    cell_wall, cell_launches = time.perf_counter() - t0, counters.read()
+    phase("train", f"one cell of example-fwd+bwd-800x500: {cell_wall!r} s, launches "
+          f"{nonzero(cell_launches)}")
     profile_frame(cscene, ccam, ccfg, "one cell of example-fwd+bwd-800x500 (forward, "
-                  "recompute, backward)", time.perf_counter() - t0, run=cell,
-                  kernel=("sphere_min_t",), kernel_name="K1 and K1b")
-
+                  "recompute, backward)", cell_wall, run=cell,
+                  kernel=("sphere_min_t", "rows_select"), kernel_name="K1, K1b, K7 and K7b")
+    kernels = {"K7b": "rows_select_bwd", "K1b": "sphere_min_t_bwd"}
+    canon_bwd = profile_backward(lambda: cell_loss(cscene, ccam),
+                                 "one cell of example-fwd+bwd-800x500", kernels)
+    # the metal scene's cell at the same size: K1b in its own place
+    mcscene, mccam = metal_scene(device), metal_camera(ccfg, device)
+    cell_loss(mcscene, mccam).backward()
+    with k1b_inputs() as calls:
+        cell_loss(mcscene, mccam).backward()
+        torch.cuda.synchronize()
+    k1b_bound = sum(bound(28 * n + (32 + 4 * mv) * int(hit) + (16 + 12 * mv) * s,
+                          (BWD_OPS + BWD_MOVE_OPS * mv) * int(hit))["bound_ms"]
+                    for n, hit, s, mv in calls)
+    metal_bwd = profile_backward(lambda: cell_loss(mcscene, mccam),
+                                 "one cell of the metal scene at 800x500", kernels)
+    k1b = metal_bwd["K1b"]
+    k1b.update(bound_ms=k1b_bound, bound_ms_a_launch=k1b_bound / max(len(calls), 1),
+               calls=len(calls), half_of_bound=k1b["device_ms"] <= 2 * k1b_bound)
+    phase("train", f"K1b in place (the metal cell's backward pass): {k1b['launches']} launches, "
+          f"{k1b['device_ms']!r} ms of device time, {k1b['ms_a_launch']!r} ms a launch, "
+          f"against its bound {k1b_bound!r} ms for the {len(calls)} calls' rays "
+          f"({[(n, int(h)) for n, h, _, _ in calls]} rays, rays that hit); within twice its "
+          f"bound {k1b['half_of_bound']}")
+    for label, bwd_res in (("canonical", canon_bwd), ("metal", metal_bwd)):
+        if bwd_res["index_add"] or bwd_res["K7b"]["launches"] == 0:
+            raise AssertionError(f"the {label} cell's backward pass still runs index_add "
+                                 f"{bwd_res['index_add']}, or did not launch K7b")
     # (e) the inverse-rendering example at its own size
     counters.reset()
     t0 = time.perf_counter()
@@ -1851,7 +2065,83 @@ def train_phase(device, card: str, counters, gen, k1b_cases, t_min, t_max) -> di
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError("the inverse-rendering example's loss did not fall")
     return {"cases": res, "metal": mstep, "warm": warm, "row": row, "no_remat": no_remat,
-            "canonical": canon, "pass1": pass1}
+            "canonical": canon, "pass1": pass1, "cell_launches": cell_launches,
+            "canonical_bwd": canon_bwd, "metal_bwd": metal_bwd}
+
+
+def bits_differ(a: list, b: list) -> list:
+    """The indices of the leaves (tensors or arrays) whose bit patterns
+    differ, NaNs included."""
+    as_bits = lambda x: (x.view(torch.int32) if isinstance(x, torch.Tensor)  # noqa: E731
+                         else torch.from_numpy(np.ascontiguousarray(x).view(np.int32)))
+    return [i for i, (x, y) in enumerate(zip(a, b))
+            if not torch.equal(as_bits(x).cpu(), as_bits(y).cpu())]
+
+
+@contextlib.contextmanager
+def k1b_inputs():
+    """Records (rays, rays that hit as a tensor, spheres, moving) of each K1b
+    call inside the block: its bound in place. The recorder stands in for
+    `sphere_min_t_bwd` in its module (SphereMinT's backward calls it by
+    that name) and hands its launch counts back on the way out."""
+    from raysnail_tpu_torch.ops import sphere_min_t as smt
+
+    calls, orig = [], smt.sphere_min_t_bwd
+
+    def recorder(o, d, t, idx, g_t, c, r2, *args, **kw):
+        calls.append((t.shape[0], (t < BIG).sum(), r2.shape[0], "time" in kw))
+        return orig(o, d, t, idx, g_t, c, r2, *args, **kw)
+
+    recorder.launches, recorder.moving_launches = orig.launches, orig.moving_launches
+    smt.sphere_min_t_bwd = recorder
+    try:
+        yield calls
+    finally:
+        smt.sphere_min_t_bwd = orig
+        orig.launches, orig.moving_launches = recorder.launches, recorder.moving_launches
+
+
+# index_add_'s op and its kernels (indexFunc*), and index_put_'s accumulating
+# kernel: none may run in a cell's backward pass
+INDEX_ADD_KEYS = ("index_add", "indexFunc", "indexing_backward")
+
+
+def profile_backward(forward, label: str, kernels: dict) -> dict:
+    """torch.profiler over the backward pass alone of the scalar that
+    `forward()` returns (the forward runs first, outside it): its device
+    time, wall, busy share and cudaLaunchKernel calls; the device time,
+    launches and ms a launch of each kernel of `kernels` ({name: key
+    substring}); and the index_add ops and kernels it ran (INDEX_ADD_KEYS)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    loss = forward()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        loss.backward()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    averages = prof.key_averages()
+    events = _device_events(prof)
+    total = sum(_dev_us(e) for e in events)
+    out = {"device_ms": total / 1e3, "wall_s": wall,
+           "launches": sum(e.count for e in averages if e.key == "cudaLaunchKernel"),
+           "index_add": {e.key: e.count for e in averages
+                         if any(t in e.key for t in INDEX_ADD_KEYS)}}
+    for name, key in kernels.items():
+        mine = [e for e in events if key in _kernel_key(e)]
+        us, n = sum(_dev_us(e) for e in mine), sum(e.count for e in mine)
+        out[name] = {"device_ms": us / 1e3, "launches": n, "ms_a_launch": us / 1e3 / max(n, 1)}
+    phase("train", f"{label}, its backward pass alone under the profiler: {wall!r} s wall, "
+          f"device {total / 1e3!r} ms (busy {100 * total / 1e6 / wall:.2f}%), "
+          f"{out['launches']} cudaLaunchKernel; "
+          + ", ".join(f"{k} {out[k]['launches']} launches {out[k]['device_ms']!r} ms"
+                      for k in kernels)
+          + f"; index_add ops and kernels {out['index_add']}")
+    for e in sorted(events, key=_dev_us, reverse=True)[:8]:
+        phase("train", f"  {_dev_us(e) / 1e3:10.3f} ms  {100 * _dev_us(e) / total:6.2f}%  "
+              f"x{e.count:<7d} {e.key[:90]}")
+    return out
 
 
 def leaf_limit_check(label: str, got: list, want: list) -> float:
@@ -2021,7 +2311,7 @@ def sharded_phase(device, card: str, counters) -> dict:
                                  grads["sharded"][0], grads["single"][0])
         spread = {}
         for label, (g_a, g_b) in grads.items():
-            n_diff = sum(not np.array_equal(a, b) for a, b in zip(g_a, g_b))
+            n_diff = len(bits_differ(g_a, g_b))
             dmax = max(float(np.abs(a - b).max(initial=0.0)) for a, b in zip(g_a, g_b))
             spread[label] = (n_diff, dmax, leaf_limit_check(f"{label} step run twice", g_b, g_a))
         trays = TRAIN_W * TRAIN_H * tcfg.effective_samples
@@ -2034,6 +2324,9 @@ def sharded_phase(device, card: str, counters) -> dict:
               f"largest difference, share of the limit) {spread}")
         if not np.isclose(losses["sharded"][0], losses["single"][0], rtol=1e-4):
             raise AssertionError(f"the sharded loss is off the single-device one: {losses}")
+        if any(n_diff for n_diff, _, _ in spread.values()):
+            raise AssertionError(f"a train step run twice on the same inputs gave other bits "
+                                 f"(leaves that differ, largest difference, share): {spread}")
 
         # (f) the dry run's forced mesh check: K2
         counters.reset()
@@ -2094,17 +2387,20 @@ def counts_kept():
     launches made to measure a kernel are not the main path's."""
     from raysnail_tpu_torch.ops import bvh_traverse as bt
     from raysnail_tpu_torch.ops import mandelbulb_march as mm
+    from raysnail_tpu_torch.ops import rows_select as rs
     from raysnail_tpu_torch.ops import sphere_min_t as smt
 
     saved = (smt.sphere_min_t.launches, smt.sphere_min_t.moving_launches,
              smt.sphere_min_t_bwd.launches, smt.sphere_min_t_bwd.moving_launches,
-             mm.mandelbulb_march.launches, dict(bt.bvh_traverse.launches))
+             mm.mandelbulb_march.launches, dict(bt.bvh_traverse.launches),
+             rs.rows_select.launches, rs.rows_select_bwd.launches)
     try:
         yield
     finally:
         (smt.sphere_min_t.launches, smt.sphere_min_t.moving_launches,
          smt.sphere_min_t_bwd.launches, smt.sphere_min_t_bwd.moving_launches,
-         mm.mandelbulb_march.launches, bt.bvh_traverse.launches) = saved
+         mm.mandelbulb_march.launches, bt.bvh_traverse.launches,
+         rs.rows_select.launches, rs.rows_select_bwd.launches) = saved
 
 
 SPIN_CYCLES = int(2e8)  # about 0.1 s at the H100's 1.98 GHz: longer than queuing the calls

@@ -2,7 +2,8 @@
 
 Materials are rows of a SoA table; sampling and pdf evaluation compute
 every material kind present in the scene for the full batch and select by
-the per-ray material type. Rows are fetched with index gathers.
+the per-ray material type. Float rows are fetched with one row select
+(`prelude.vec.take_rows`), integer rows by indexing.
 
 Material kinds and reference behavior:
   LAMBERTIAN    CosinePdf about the normal               lambertian.rs:39-50
@@ -25,7 +26,7 @@ import torch
 
 from raysnail_tpu_torch.prelude import sampling
 from raysnail_tpu_torch.prelude.sampling import INV_PI, PI
-from raysnail_tpu_torch.prelude.vec import Vec3, div_const, take
+from raysnail_tpu_torch.prelude.vec import Vec3, div_const, take_rows
 
 LAMBERTIAN = 0
 METAL = 1
@@ -83,18 +84,23 @@ def resolve(table: MaterialTable, mat_id, u_mix, default_id: int = 0, depth: int
 
 
 def gather(table: MaterialTable, mat_id) -> Rows:
-    """Per-ray material rows by index (the float rows by `take`, whose
-    backward is the one the gradient step can afford)."""
+    """Per-ray material rows by index: the float rows that the gradient
+    reaches (param0, param1, emit_mult, phong_factor) as the four columns of
+    one select (`take_rows`: the gather kernel on the card, and
+    its fixed-order backward under autograd), the integer rows and the
+    exponent by indexing."""
     m = mat_id.long()
-    return Rows(mtype=table.mtype[m], tex_id=table.tex_id[m], param0=take(table.param0, m),
-                param1=take(table.param1, m), emit_mult=take(table.emit_mult, m),
-                phong_factor=take(table.phong_factor, m),
+    param0, param1, emit_mult, phong_factor = take_rows(
+        (table.param0, table.param1, table.emit_mult, table.phong_factor), m)
+    return Rows(mtype=table.mtype[m], tex_id=table.tex_id[m], param0=param0, param1=param1,
+                emit_mult=emit_mult, phong_factor=phong_factor,
                 phong_exponent=table.phong_exponent[m])
 
 
 def gather_absorb(table: MaterialTable, mat_id) -> Vec3:
-    """Per-ray Beer-Lambert absorption coefficients (extension)."""
-    return table.absorb[mat_id.long()]
+    """Per-ray Beer-Lambert absorption coefficients (extension), one select
+    of the three columns."""
+    return table.absorb.take(mat_id.long())
 
 
 def is_skip_pdf(rows: Rows):

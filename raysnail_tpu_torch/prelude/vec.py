@@ -11,6 +11,8 @@ from typing import Sequence
 
 import torch
 
+from raysnail_tpu_torch.ops import rows_select
+
 
 def div_const(a: torch.Tensor, c: float) -> torch.Tensor:
     """a / c for a Python number c, rounded as one IEEE division on every
@@ -22,14 +24,21 @@ def div_const(a: torch.Tensor, c: float) -> torch.Tensor:
     return a / torch.full_like(a, c)
 
 
-def take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table[idx] (a table's rows gathered by per-ray indices) through
-    torch.index_select, whose backward adds the rays' gradients into the
-    rows with index_add_. The backward of table[idx] sorts the indices and
-    sums each row's run of duplicates in one thread: on the card, a table of
-    a few rows gathered by 400,000 rays took 18 ms a call that way. The
-    values are the same."""
-    return torch.index_select(table, 0, idx.reshape(-1)).reshape(idx.shape)
+def take_rows(columns: Sequence[torch.Tensor], idx: torch.Tensor) -> tuple:
+    """The rows of a table of K float columns (each (R,), K <= 8) gathered
+    by per-ray indices: -> K tensors of idx's shape, each column[idx].
+
+    One select (`ops.rows_select.RowsSelect`) for all K columns: on the card
+    the gather kernel K7 and, under autograd, its backward K7b, which sums
+    each row's rays' cotangents in one fixed order, so a gradient repeats
+    bit for bit from run to run. The JAX package selects these rows with a
+    one-hot on an accelerator (geometry/hit.py `select_table`), whose
+    transpose XLA sums in a fixed order too. A gather's usual backward,
+    index_add_, adds 400,000 rays into a few rows with atomics in no fixed
+    order. The values are those of column[idx]; each index must lie in
+    [0, R)."""
+    out = rows_select.RowsSelect.apply(idx.reshape(-1).long(), *columns)
+    return tuple(c.reshape(idx.shape) for c in out)
 
 
 class Vec3:
@@ -76,8 +85,9 @@ class Vec3:
         return Vec3(self.x[idx], self.y[idx], self.z[idx])
 
     def take(self, idx) -> "Vec3":
-        """Rows gathered by per-ray indices (`take`)."""
-        return Vec3(take(self.x, idx), take(self.y, idx), take(self.z, idx))
+        """Rows gathered by per-ray indices, the three components in one
+        select (`take_rows`)."""
+        return Vec3(*take_rows((self.x, self.y, self.z), idx))
 
     # -- arithmetic --------------------------------------------------------
     @staticmethod

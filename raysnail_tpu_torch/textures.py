@@ -2,7 +2,9 @@
 
 Textures live in one SoA table; evaluation computes every mode present in
 the scene (static knowledge from scene compile) for the whole ray batch and
-selects by the per-ray texture id. Rows are fetched with index gathers.
+selects by the per-ray texture id. The colors (the gradient's leaves) are
+fetched with one row select (`prelude.vec.take_rows`), the other rows by
+indexing.
 
   CONSTANT      solid color (color.rs:61-65)
   CHECKER       3-D sign of sin(s x) sin(s y) sin(s z) (checker.rs:22-29)
@@ -27,7 +29,7 @@ from typing import NamedTuple
 import torch
 
 from raysnail_tpu_torch.prelude.rng import MASK, _fmix32
-from raysnail_tpu_torch.prelude.vec import Vec3
+from raysnail_tpu_torch.prelude.vec import Vec3, take_rows
 
 CONSTANT = 0
 CHECKER = 1
@@ -197,5 +199,6 @@ def evaluate(table: TextureTable, tex_id, u, v, p: Vec3, modes: frozenset) -> Ve
         cval = _eval_base(table, leaf, u, v, p, modes)
     else:
         odd = _checker_sign(table, tid, p)
-        cval = Vec3.where(odd, table.color1.take(tid), table.color2.take(tid))
+        c = take_rows((*table.color1, *table.color2), tid)  # both colors, one select
+        cval = Vec3.where(odd, Vec3(*c[:3]), Vec3(*c[3:]))
     return Vec3.where(is_checker, cval, out)

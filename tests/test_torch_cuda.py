@@ -13,7 +13,9 @@ every attribute bit-equal, so the same winner on every ray, ties included.
 That holds for both traversal kernels, and for the packet kernel in every
 kind (tri, tri_mxu, box, sphere), with `stream` and `two_level` on and off;
 and for the Mandelbulb march: t, valid, normal, u, v and the step and
-iteration counts bit-equal.
+iteration counts bit-equal; and for the rows' select: K7 equal to
+index_select, K7b bit-equal to its plain version and to itself on a second
+call, so a train step run twice gives the same bits.
 """
 
 import numpy as np
@@ -715,8 +717,9 @@ def _grad_step(scene, cam, cfg, weights=None):
 def test_gradient_on_the_card_matches_the_cpu(cuda_device, name):
     """render_image_diff's gradient (the mean of R + G + B) at 32x20@4spp,
     depth 4, on the card against the CPU: each leaf within
-    1e-3 * max|g_cpu| + 1e-6 (the card adds the rows' gradients in an order
-    of its own); pixels whose radiance differs beyond 1e-4 (a path flipped
+    1e-3 * max|g_cpu| + 1e-6 (the rows' sums take one order on both, K7b's,
+    but the card rounds some of the render's functions otherwise); pixels
+    whose radiance differs beyond 1e-4 (a path flipped
     by an ulp) are left out of the scalar on both sides, at most 1%. The
     metal scene (a DiffuseMetal and a BlinnPhong sphere) sends its bounce
     rays' t through K1b."""
@@ -762,3 +765,88 @@ def metal_scene(device):
           light=True)
     b.set_background((0.1, 0.1, 0.1))
     return b.compile(device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n,k", [(7, 400_000, 4), (6, 400_000, 3), (6, 400_000, 6),
+                                      (481, 400_000, 4), (1024, 100_003, 6),
+                                      (4096, 400_000, 6), (1, 1, 1), (5, 0, 3), (3, 2049, 8)])
+def test_rows_select_kernels_match_plain(cuda_device, rows, n, k):
+    """K7 equals index_select; K7b is bit-equal to its plain version and
+    gives the same bits on two calls (no atomics); a NaN cotangent stays in
+    its row on both."""
+    from raysnail_tpu_torch.ops import rows_select as rs
+
+    rng = np.random.default_rng(rows + n + k)
+    table = torch.from_numpy(rng.standard_normal((rows, k)).astype(np.float32)).to(cuda_device)
+    idx = torch.from_numpy(np.sort(rng.integers(0, rows, n))).to(cuda_device)
+    g = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).to(cuda_device)
+    if n > 100:
+        g[50, 0] = float("nan")
+    before = (rs.rows_select.launches, rs.rows_select_bwd.launches)
+    out = torch.stack(rs.rows_select(table.unbind(1), idx), 1)  # strided columns
+    grads = [torch.stack(rs.rows_select_bwd(g.unbind(1), idx, rows), 1) for _ in range(2)]
+    launched = n > 0
+    assert (rs.rows_select.launches, rs.rows_select_bwd.launches) == (
+        before[0] + launched, before[1] + 2 * launched)
+    want = rs.rows_select_bwd_plain(g, idx, rows)
+    torch.cuda.synchronize()
+    assert out.shape == (n, k) and torch.equal(out, torch.index_select(table, 0, idx))
+    for got in grads:
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(torch.nan_to_num(got, nan=7.0), torch.nan_to_num(want, nan=7.0))
+    if n > 100:
+        assert int(torch.isnan(want).sum()) == 1 and bool(torch.isnan(want[idx[50], 0]))
+    # contiguous cotangent columns read the same values as strided ones
+    gc = [c.contiguous() for c in g.unbind(1)]
+    assert torch.equal(torch.nan_to_num(torch.stack(rs.rows_select_bwd(gc, idx, rows), 1),
+                                        nan=7.0), torch.nan_to_num(want, nan=7.0))
+
+
+@pytest.mark.cuda
+def test_rows_select_function_launches_k7_and_k7b(cuda_device):
+    from raysnail_tpu_torch.ops import rows_select as rs
+    from raysnail_tpu_torch.prelude.vec import take_rows
+
+    rng = np.random.default_rng(3)
+    cols = [torch.from_numpy(rng.standard_normal(9).astype(np.float32)).to(cuda_device)
+            .requires_grad_(True) for _ in range(4)]
+    idx = torch.from_numpy(rng.integers(0, 9, 70_001)).to(cuda_device)
+    before = (rs.rows_select.launches, rs.rows_select_bwd.launches)
+    out = take_rows(cols, idx)
+    assert all(o.is_contiguous() for o in out)
+    sum(((j + 1) * o).sum() for j, o in enumerate(out)).backward()
+    assert (rs.rows_select.launches, rs.rows_select_bwd.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    g = torch.stack([torch.full_like(out[0], float(j + 1)) for j in range(4)], dim=1)
+    want = rs.rows_select_bwd_plain(g, idx, 9)
+    assert all(torch.equal(c.grad, want[:, j]) for j, c in enumerate(cols))
+    # an output with no gradient: K7b reads its column as zeros
+    for c in cols:
+        c.grad = None
+    out = take_rows(cols, idx)
+    (3 * out[2]).sum().backward()
+    assert torch.equal(cols[2].grad, want[:, 2]) and all(
+        not cols[j].grad.any() for j in (0, 1, 3))
+
+
+@pytest.mark.cuda
+def test_train_step_repeats_bit_for_bit(cuda_device):
+    """The metal scene's train step, twice on the same inputs: the same bits
+    in every leaf (NaN traps compared as bit patterns)."""
+    from raysnail_tpu_torch.camera import build_camera
+    from raysnail_tpu_torch.config import RenderConfig
+    from raysnail_tpu_torch.diff import make_train_step
+    from raysnail_tpu_torch.diff.params import leaves
+
+    cfg = RenderConfig(width=64, height=40, samples=4, max_depth=4)
+    scene = metal_scene(cuda_device)
+    cam = build_camera(look_from=(0, 0, 1), look_at=(0, 0, -1), fov=50, width=64, height=40,
+                       device=cuda_device)
+    target = np.zeros((40, 64, 3), np.float32)
+    runs = []
+    for _ in range(2):
+        step, state, p0 = make_train_step(scene, cam, cfg, target)
+        p1, _, loss = step(p0, state, 1, np.arange(cfg.effective_samples))
+        runs.append([x.detach().view(torch.int32).clone() for x in leaves(p1)])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
