@@ -46,13 +46,20 @@ and exits non-zero if any fails:
               bit, the near accumulator within probes.ACC_RTOL. The rows'
               select K7 and its fixed-order transpose K7b on the material
               rows of the hits of example.sdl's and the static book 1
-              frame's primary rays (K = 4), and on book 1's rows spread
-              over 1,024 (K = 4) and 4,096 rows (K = 6): K7 bit for bit
-              against its plain version and index_select, K7b bit for bit
-              against its plain version on two calls; call, device (warm
-              and L2-cold) and plain ms, the library calls (index_select;
-              index_add, also under torch.use_deterministic_algorithms,
-              and whether each repeats its bits) and the bounds
+              frame's primary rays (K = 4), example.sdl's texture rows of
+              the same hits (K = 3 and 6), the same three in a random order
+              (the regen-shuffle integrator's bounce rays come shuffled:
+              a segment of 32 rays then holds up to 10 rows), and on
+              book 1's rows spread over 1,024 (K = 4) and 4,096 rows
+              (K = 6): K7 bit for bit against its plain version and
+              index_select, K7b bit for bit against its plain version on
+              two calls; the share of K7b's segments by the rows they
+              hold, and K7b's route (one launch, or a second launch for
+              the chunks' sum; row tiles); call, device (warm and
+              L2-cold) and plain ms, the library calls' call and device ms
+              (index_select; index_add, also under
+              torch.use_deterministic_algorithms, and whether each repeats
+              its bits) and the bounds
   4. golden   the anchors example.sdl, mesh, mesh-binned, boxfield-kernel,
               book1-spherebvh, book1, cornell, quadric.sdl, csg.sdl and
               mandelbulb on the card, against the committed
@@ -174,6 +181,7 @@ import concurrent.futures
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -385,17 +393,77 @@ def hit_rows(scene, ray, cfg) -> torch.Tensor:
     return torch.clamp_min(hit.mat_id, 0).long().contiguous()
 
 
+def segment_rows(idx) -> dict:
+    """K7b's segments (32 consecutive rays) by the rows they hold: the share
+    of the whole segments with 1, 2-4, 5-8, 9-16 and 17-32 rows, and the
+    mean."""
+    from raysnail_tpu_torch.ops import rows_select as rs
+
+    n = idx.shape[0] - idx.shape[0] % rs.SEGMENT
+    seg = idx[:n].view(-1, rs.SEGMENT).sort(dim=1).values
+    d = 1 + (seg[:, 1:] != seg[:, :-1]).sum(dim=1)
+    bins = {"1": (1, 1), "2-4": (2, 4), "5-8": (5, 8), "9-16": (9, 16), "17-32": (17, 32)}
+    out = {b: float(((d >= lo) & (d <= hi)).float().mean()) for b, (lo, hi) in bins.items()}
+    out["mean"] = float(d.float().mean())
+    return out
+
+
+def k7b_route(rows: int, k: int) -> str:
+    """K7b's launches for an (R, K) table (csrc/rows_select.cu's
+    launch_bwd): one launch, or two (a second for the chunks' sum); the
+    row tiles' kernel above kSmemBudget's entries."""
+    with open(os.path.join(ROOT, "raysnail_tpu_torch", "csrc", "rows_select.cu")) as f:
+        src = f.read()
+    const = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    budget = int(re.search(r"kSmemBudget = (\d+) \* 1024", src)[1]) * 1024
+    most = budget // (const["kChunkRuns"] * 4)
+    if rows * k > most:
+        return f"two launches, row tiles of {most // k}"
+    return "one launch" if rows * k <= const["kOneLaunchEntries"] else "two launches"
+
+
+def rows_cases(scene, ray, cfg, sscene, sray, vcfg, gen) -> dict:
+    """K7's and K7b's cases -> {name: (idx, rows, k, label)}: the material
+    rows of example.sdl's and the static book 1 frame's primary rays' hits
+    (K = 4, materials.gather), example.sdl's texture rows of the same hits
+    (K = 3, the base color; K = 6, the checker's two colors), those three
+    in a random order (the regen-shuffle integrator's bounce rays come
+    shuffled), and the book 1 rows spread over 1,024 and 4,096 rows."""
+    idx_ex = hit_rows(scene, ray, cfg)
+    n_ex = scene.arrays.materials.mtype.shape[0]
+    tex_ex = torch.clamp_min(scene.arrays.materials.tex_id[idx_ex], 0).long()
+    n_tex = scene.arrays.textures.ttype.shape[0]
+    idx_b1 = hit_rows(sscene, sray, vcfg)
+    n_b1 = sscene.arrays.materials.mtype.shape[0]
+    shuffle = torch.randperm(idx_ex.shape[0], generator=gen, device=idx_ex.device)
+    spread = lambda rows: (idx_b1 * rows) // n_b1 + torch.randint(  # noqa: E731
+        0, rows // n_b1, idx_b1.shape, generator=gen, device=idx_b1.device)
+    return {
+        "example.sdl": (idx_ex, n_ex, 4, "example.sdl primary rays' material rows"),
+        "textures3": (tex_ex, n_tex, 3, "example.sdl primary rays' texture rows, K = 3"),
+        "textures6": (tex_ex, n_tex, 6, "example.sdl primary rays' texture rows, K = 6"),
+        "shuffled": (idx_ex[shuffle], n_ex, 4, "example.sdl's material rows, shuffled"),
+        "textures3_shuffled": (tex_ex[shuffle], n_tex, 3,
+                               "example.sdl's texture rows, shuffled, K = 3"),
+        "textures6_shuffled": (tex_ex[shuffle], n_tex, 6,
+                               "example.sdl's texture rows, shuffled, K = 6"),
+        "book1": (idx_b1, n_b1, 4, "static book 1 primary rays' material rows"),
+        "1024": (spread(ROWS_1024), ROWS_1024, 4, f"book 1's rows spread over {ROWS_1024}"),
+        "4096": (spread(ROWS_4096), ROWS_4096, 6,
+                 f"book 1's rows spread over {ROWS_4096}, K = 6")}
+
+
 def check_rows_select(idx, rows: int, k: int, gen, label: str) -> dict:
     """K7 and K7b against their plain versions on `idx` (N,) int64 with a
     seeded (rows, k) table and (N, k) cotangent, passed to the wrappers as
     their k strided columns: K7 bit-equal to the plain
     gather and to index_select; K7b bit-equal to its plain version, and to
     itself on a second call. Call, device (warm and L2-cold) and plain ms;
-    the library calls' ms: index_select for K7; index(0, idx, g) into zeros
-    (index_add_'s out-of-place form) for K7b, also under
+    the library calls' call and device ms: index_select for K7; index(0,
+    idx, g) into zeros (index_add_'s out-of-place form) for K7b, also under
     torch.use_deterministic_algorithms(True), and whether each repeats its
     bits; each kernel's bound (the index, the rays' K columns and the
-    table's once)."""
+    table's once); K7b's segments by their rows, and its route."""
     from raysnail_tpu_torch.ops import rows_select as rs
 
     n, device = idx.shape[0], idx.device
@@ -406,30 +474,31 @@ def check_rows_select(idx, rows: int, k: int, gen, label: str) -> dict:
     fwd = lambda: rs.rows_select(cols, idx)  # noqa: E731
     bwd = lambda: rs.rows_select_bwd(gs, idx, rows)  # noqa: E731
     add = lambda: zeros.index_add(0, idx, g)  # noqa: E731
+    select = lambda: torch.index_select(table, 0, idx)  # noqa: E731
     with counts_kept():
-        out, grads = torch.stack(fwd(), 1), [torch.stack(bwd(), 1) for _ in range(2)]
+        out, grads = fwd().t(), [torch.stack(bwd(), 1) for _ in range(2)]
         want_out = rs.rows_select_plain(table, idx)
         want = rs.rows_select_bwd_plain(g, idx, rows)
         added = [add(), add()]
         torch.cuda.synchronize()
-        fwd_same = torch.equal(out, want_out) and torch.equal(
-            out, torch.index_select(table, 0, idx))
+        fwd_same = torch.equal(out, want_out) and torch.equal(out, select())
         bwd_same = all(torch.equal(x, want) for x in grads)
         n_bytes = n * 8 + n * k * 4 + rows * k * 4
         res = {"rows": rows, "columns": k, "rays": n,
                "fwd_bit_equal": fwd_same, "bwd_bit_equal": bwd_same,
+               "segment_rows": segment_rows(idx), "route": k7b_route(rows, k),
                "max_abs_err": max(float((out - want_out).abs().max()),
                                   float((grads[0] - want).abs().max())),
                "fwd": {"ms": time_ms(fwd), "device_ms": device_ms(fwd),
                        "cold_device_ms": device_ms(fwd, cold=True),
                        "plain_ms": time_ms(lambda: rs.rows_select_plain(table, idx)),
-                       "library_ms": time_ms(lambda: torch.index_select(table, 0, idx)),
+                       "library_ms": time_ms(select), "library_device_ms": device_ms(select),
                        **bound(n_bytes, 0)},
                "bwd": {"ms": time_ms(bwd), "device_ms": device_ms(bwd),
                        "cold_device_ms": device_ms(bwd, cold=True),
                        "plain_ms": time_ms(lambda: rs.rows_select_bwd_plain(g, idx, rows),
                                            PLAIN_RUNS),
-                       "library_ms": time_ms(add),
+                       "library_ms": time_ms(add), "library_device_ms": device_ms(add),
                        "library_repeats": torch.equal(*added),
                        "library_max_abs_diff": float((added[0] - want).abs().max()),
                        **bound(n_bytes, n * k)}}
@@ -445,19 +514,23 @@ def check_rows_select(idx, rows: int, k: int, gen, label: str) -> dict:
         finally:
             torch.use_deterministic_algorithms(False)
     f, b = res["fwd"], res["bwd"]
+    res["fwd"]["at_or_below_library"] = f["ms"] <= f["library_ms"]
     phase("kernels", f"rows_select {label}: N={n} R={rows} K={k}: K7 bit-equal to the plain "
           f"gather and index_select {fwd_same}, K7b bit-equal to its plain version on two "
-          f"calls {bwd_same}; K7 call {f['ms']!r} ms, device {f['device_ms']!r} ms (L2 cold "
-          f"{f['cold_device_ms']!r}), plain {f['plain_ms']!r}, index_select "
-          f"{f['library_ms']!r}, bound {f['bound_ms']!r} ms by {f['bound_by']}; K7b call "
+          f"calls {bwd_same}; K7 call {f['ms']!r} ms (at or below index_select's "
+          f"{f['at_or_below_library']}), device {f['device_ms']!r} ms (L2 cold "
+          f"{f['cold_device_ms']!r}), plain {f['plain_ms']!r}, index_select call "
+          f"{f['library_ms']!r} device {f['library_device_ms']!r}, bound {f['bound_ms']!r} ms "
+          f"by {f['bound_by']}; K7b ({res['route']}) call "
           f"{b['ms']!r} ms, device {b['device_ms']!r} ms (L2 cold {b['cold_device_ms']!r}), "
-          f"plain {b['plain_ms']!r}, index_add {b['library_ms']!r} (repeats its bits "
+          f"plain {b['plain_ms']!r}, index_add call {b['library_ms']!r} device "
+          f"{b['library_device_ms']!r} (repeats its bits "
           f"{b['library_repeats']}, max |d| from K7b {b['library_max_abs_diff']!r}), "
           f"deterministic index_add "
           f"{b.get('deterministic_library_ms')!r} (repeats "
           f"{b.get('deterministic_library_repeats')}, raises "
           f"{b.get('deterministic_library_raises')!r}), bound {b['bound_ms']!r} ms by "
-          f"{b['bound_by']}")
+          f"{b['bound_by']}; segments by rows {res['segment_rows']}")
     if not (fwd_same and bwd_same):
         raise AssertionError(f"rows_select {label}: a kernel disagrees with its plain version")
     return res
@@ -1084,31 +1157,9 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     if not vscene.static.moving or vsph.pk_bb is not None or moved == 0:
         raise AssertionError("the moving book 1 scene does not move, or it was packed")
 
-    # K7 and K7b (the rows' select and its fixed-order transpose): the
-    # material rows of example.sdl's and the static book 1 frame's primary
-    # rays' hits (K = 4, materials.gather), example.sdl's texture rows of
-    # the same hits (K = 3, the base color; K = 6, the checker's two
-    # colors), and the book 1 rows spread over 1,024 and 4,096 rows
-    idx_ex = hit_rows(scene, ray, cfg)
-    tex_ex = torch.clamp_min(scene.arrays.materials.tex_id[idx_ex], 0).long()
-    n_tex = scene.arrays.textures.ttype.shape[0]
-    idx_b1 = hit_rows(sscene, sray, vcfg)
-    n_b1 = sscene.arrays.materials.mtype.shape[0]
-    spread = lambda rows: (idx_b1 * rows) // n_b1 + torch.randint(  # noqa: E731
-        0, rows // n_b1, idx_b1.shape, generator=gen, device=device)
-    res_rows = {
-        "example.sdl": check_rows_select(idx_ex, scene.arrays.materials.mtype.shape[0], 4,
-                                         gen, "example.sdl primary rays' material rows"),
-        "textures3": check_rows_select(tex_ex, n_tex, 3, gen,
-                                       "example.sdl primary rays' texture rows, K = 3"),
-        "textures6": check_rows_select(tex_ex, n_tex, 6, gen,
-                                       "example.sdl primary rays' texture rows, K = 6"),
-        "book1": check_rows_select(idx_b1, n_b1, 4, gen,
-                                   "static book 1 primary rays' material rows"),
-        "1024": check_rows_select(spread(ROWS_1024), ROWS_1024, 4, gen,
-                                  f"book 1's rows spread over {ROWS_1024}"),
-        "4096": check_rows_select(spread(ROWS_4096), ROWS_4096, 6, gen,
-                                  f"book 1's rows spread over {ROWS_4096}, K = 6")}
+    # K7 and K7b (the rows' select and its fixed-order transpose)
+    res_rows = {name: check_rows_select(idx, rows, k, gen, label) for name, (idx, rows, k, label)
+                in rows_cases(scene, ray, cfg, sscene, sray, vcfg, gen).items()}
 
     # the Mandelbulb march (K6): the mandelbulb-passes4 camera's primary rays
     # in tile order, then their bounce rays in place
@@ -1734,8 +1785,10 @@ def run(device: torch.device, card: str, profile: bool) -> list:
             "max_abs_err": max(r["max_abs_err"] for r in res_rows.values()),
             **{k: ex[k] for k in ("ms", "device_ms", "cold_device_ms", "plain_ms", "bound_ms",
                                   "bound_by", "library_ms")},
+            "library_device_ms": ex["library_device_ms"],
             **{f"{case}_{k}": r[key][k] for case, r in res_rows.items() if case != "example.sdl"
-               for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")},
+               for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                         "library_device_ms")},
             **({"deterministic_library_ms": ex.get("deterministic_library_ms"),
                 "library_repeats": ex["library_repeats"],
                 "in_place_canonical_device_ms": train["canonical_bwd"]["K7b"]["device_ms"],

@@ -7,19 +7,20 @@ an accelerator with a one-hot select (`raysnail_tpu/geometry/hit.py:88-104`
 `onehot_of`, `select_table`, from `materials.py:94` and `textures.py:75`):
 sum(where(onehot, table, 0), axis=1). No Pallas kernel: XLA fuses the
 select, and its transpose reduces the rays' cotangents into the rows in
-XLA's fixed order, with no atomics. A gather's usual backward on the card
-(`index_add_`) adds with atomics in no fixed order, so the gradient's bits
-change from run to run.
+XLA's fixed order. A gather's usual backward on the card (`index_add_`)
+adds with atomics in no fixed order, so the gradient's bits change from
+run to run.
 
 A table is K <= MAX_COLUMNS float columns of R entries, each its own (R,)
 tensor (the port keeps a table's fields apart); the kernels take each
 column's pointer and stride, so nothing stacks them first. Here:
 
 - `rows_select_plain(table, idx)`: table (R, K), idx (N,) int64 -> (N, K),
-  exactly `table[idx]`. `rows_select(columns, idx)` -> the K (N,) columns
-  of it; on a CUDA tensor it launches K7 (`csrc/rows_select.cu`), one
-  launch for the K columns, which it writes as the rows of one (K, N)
-  tensor, each a contiguous (N,) view.
+  exactly `table[idx]`. `rows_select(columns, idx)` -> one (K, N) tensor
+  whose row k is columns[k][idx] (on the CPU the plain version's result,
+  transposed); on a CUDA tensor it launches K7 (`csrc/rows_select.cu`), one
+  launch for the K columns. Like `index_select`, whose yardstick it is, the
+  call returns one tensor: `prelude.vec.take_rows` splits it into columns.
 - `rows_select_bwd_plain(g, idx, rows)`: g (N, K) -> (R, K), the sum of
   each row's rays' cotangents in this order, which depends only on N:
     1. a segment is SEGMENT = 32 consecutive rays: each row's cotangents
@@ -34,40 +35,65 @@ column's pointer and stride, so nothing stacks them first. Here:
   +0.0 is never -0.0, so adding the +0.0 of a ray or a part without row r
   changes no bit. A NaN cotangent therefore lands in its own row only.
   `rows_select_bwd(grads, idx, rows)` -> the K (R,) columns of it from K
-  (N,) cotangents (None for zeros); on a CUDA tensor it launches K7b (two
-  launches: the chunks' sums, then their sum, written as the rows of one
-  (K, R) tensor), bit-equal to the plain version.
+  (N,) cotangents (None for zeros); on a CUDA tensor it launches K7b, a
+  block a chunk, bit-equal to the plain version. For a table of at most 64
+  entries (R x K) that is one launch: the block that takes the last ticket
+  of a counter adds the chunks' sums; a larger table takes a second launch
+  for that sum.
 - `RowsSelect`: the autograd Function of the pair; the index gets no
   gradient.
+
+K7b's ticket counter is one int32 on the card for each (device, stream)
+that launches K7b, zero between launches: the last block sets it back.
+Two launches at once on two streams that shared one counter would mix
+their tickets, so a block could take the last ticket while the other
+launch's blocks were still writing, and sum partials not yet written. So
+each stream has its own counter, and launches on one stream run one after
+another. A launch captured into a CUDA graph could be replayed on another
+stream beside a launch on the captured counter: the wrapper raises under
+capture. The ticket decides which block sums, never the order of the sums.
 
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor they
 launch the kernel or raise (float32 only, K <= MAX_COLUMNS), never a plain
 version, `index_select` or `index_add_`. Every index must lie in [0, R):
 on the CPU the wrappers raise IndexError, on the card the kernels stop
 with a device-side assert, as index_select does. N = 0 needs no kernel:
-the wrappers return the empty gather and a zero gradient.
+the wrappers return the empty gather and a zero gradient. The checks on a
+CUDA tensor read each column's attributes once; the launch's arguments go
+to the kernels packed into one int64 array, with the current device's raw
+stream (the device is switched only when the index lies on another). A
+frame pays K7's call in host time three times a shade iteration.
 
 `rows_select.launches` and `rows_select_bwd.launches` count kernel calls
-(K7b's two launches count once), not plain-version calls.
+(K7b's second launch, where it takes one, counts with its first), not
+plain-version calls.
 """
 
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import torch
 
 from raysnail_tpu_torch.ops import _nvcc
 
 # the order's constants; csrc/rows_select.cu's kSegment, kRunSegments and
-# kWarps (tests/test_torch_rows_select.py holds them equal)
+# kChunkRuns (tests/test_torch_rows_select.py holds them equal)
 SEGMENT = 32        # rays a segment (a warp's lanes)
 RUN_SEGMENTS = 8    # segments a run (one warp's share of a chunk)
 CHUNK_RUNS = 8      # runs a chunk (a K7b block's warps)
 CHUNK = SEGMENT * RUN_SEGMENTS * CHUNK_RUNS
 MAX_COLUMNS = 8
 
+_F32, _I64 = torch.float32, torch.int64
+# the entry points' int64 arguments: K7's N, R, K, idx, out and K7b's N, R,
+# K, idx, part, ticket, out, each then K pointers and K element strides
+_K7_ARGS = [struct.Struct(f"<{5 + 2 * k}q") for k in range(MAX_COLUMNS + 1)]
+_K7B_ARGS = [struct.Struct(f"<{7 + 2 * k}q") for k in range(MAX_COLUMNS + 1)]
+
 _lib = None
+_tickets = {}  # (device index, raw stream) -> K7b's ticket counter
 
 
 def build(verbose: bool = False) -> str:
@@ -79,11 +105,9 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.rows_select_launch.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr, ptr]
-        lib.rows_select_launch.restype = i32
-        lib.rows_select_bwd_launch.argtypes = [ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr]
-        lib.rows_select_bwd_launch.restype = i32
+        for fn in (lib.rows_select_launch, lib.rows_select_bwd_launch):
+            fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]  # the packed int64s, the stream
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -147,79 +171,114 @@ def _check_range(idx: torch.Tensor, rows: int):
         raise IndexError(f"rows_select: an index outside [0, {rows})")
 
 
-def _pointers(columns) -> tuple:
-    """ctypes arrays of the columns' addresses (null for None) and element
-    strides."""
-    k = len(columns)
-    ptrs = (ctypes.c_void_p * k)(*(0 if c is None else c.data_ptr() for c in columns))
-    strides = (ctypes.c_longlong * k)(*(0 if c is None else c.stride(0) for c in columns))
-    return ptrs, strides
+def _cpu_inputs(name, tensors, idx, length, rows, k):
+    """The CPU route's checks (any float dtype)."""
+    device = idx.device
+    _check_sizes(rows, k, idx.shape[0])
+    _check("idx", idx, (idx.shape[0],), _I64, device)
+    for t in tensors:
+        if t is not None:
+            _check(name, t, (length,), None, device)
+    if device.type != "cpu":
+        raise ValueError(f"rows_select: unsupported device {device}")
+    _check_range(idx, rows)
 
 
-def _launch(name, fn, *args):
-    err = fn(*args)
+def _cuda_index(idx: torch.Tensor, rows: int, k: int) -> tuple:
+    """K7's and K7b's checks of idx on the card -> (N, its device index)."""
+    if idx.dtype is not _I64 or idx.dim() != 1:
+        _check("idx", idx, (idx.numel(),), _I64, idx.device)
+    n = idx.shape[0]
+    _check_sizes(rows, k, n)
+    return n, idx.get_device()
+
+
+def _columns(name: str, tensors, length: int, dev: int) -> list:
+    """One pass over the K tensors (None reads as zeros), each a (length,)
+    float32 tensor on CUDA device `dev` -> their pointers, then their
+    element strides."""
+    ptrs, strides, shape = [], [], (length,)
+    for t in tensors:
+        if t is None:
+            ptrs.append(0)
+            strides.append(0)
+            continue
+        if t.dtype is not _F32 or t.shape != shape or t.get_device() != dev:
+            raise ValueError(f"rows_select: {name} must be a {shape} torch.float32 tensor on "
+                             f"cuda:{dev}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+        ptrs.append(t.data_ptr())
+        strides.append(t.stride()[0])
+    return ptrs + strides
+
+
+def _launch(name: str, fn, dev: int, args: bytes):
+    """fn(args, stream) on device `dev`'s current raw stream."""
+    if torch._C._cuda_getDevice() == dev:
+        err = fn(args, torch._C._cuda_getCurrentRawStream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(args, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
-def rows_select(columns, idx: torch.Tensor) -> tuple:
-    """K7: -> K (N,) tensors, columns[k][idx], for K <= 8 float columns (R,)
-    (any strides) and idx (N,) int64."""
-    device, n, k = idx.device, idx.shape[0], len(columns)
-    rows = columns[0].shape[0] if k else 0
-    _check_sizes(rows, k, n)
-    _check("idx", idx, (n,), torch.int64, device)
-    for c in columns:
-        _check("a column", c, (rows,), None if device.type == "cpu" else torch.float32, device)
-    if device.type == "cpu":
-        _check_range(idx, rows)
-        return tuple(rows_select_plain(torch.stack(tuple(columns), dim=1), idx).unbind(1))
-    if device.type != "cuda":
-        raise ValueError(f"rows_select: unsupported device {device}")
-    out = torch.empty((k, n), dtype=torch.float32, device=device)
+def rows_select(columns, idx: torch.Tensor) -> torch.Tensor:
+    """K7: -> a (K, N) tensor whose row k is columns[k][idx], for K <= 8
+    float columns (R,) (any strides) and idx (N,) int64."""
+    k = len(columns)
+    rows = columns[0].shape[0] if k and columns[0].dim() else 0
+    if not idx.is_cuda:
+        _cpu_inputs("a column", columns, idx, rows, rows, k)
+        return rows_select_plain(torch.stack(tuple(columns), dim=1), idx).t()
+    n, dev = _cuda_index(idx, rows, k)
+    cols = _columns("a column", columns, rows, dev)
+    out = columns[0].new_empty((k, n))  # float32 on dev, as checked: no arguments to parse
     if n == 0:
-        return out.unbind(0)
-    idx = idx.contiguous()
-    cols, strides = _pointers(columns)
-    lib = _load()
-    with torch.cuda.device(device):
-        _launch("rows_select", lib.rows_select_launch, cols, strides, idx.data_ptr(), n, rows,
-                k, out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+        return out
+    _launch("rows_select", (_lib or _load()).rows_select_launch, dev, _K7_ARGS[k].pack(
+        n, rows, k, idx.contiguous().data_ptr(), out.data_ptr(), *cols))
     rows_select.launches += 1
-    return out.unbind(0)
+    return out
 
 
 rows_select.launches = 0
 
 
+def _ticket(dev: int, stream: int) -> torch.Tensor:
+    """K7b's ticket counter for launches on `stream` of device `dev` (the
+    module docstring says why one a stream)."""
+    ticket = _tickets.get((dev, stream))
+    if ticket is None:
+        ticket = _tickets[dev, stream] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return ticket
+
+
 def rows_select_bwd(grads, idx: torch.Tensor, rows: int) -> tuple:
     """K7b: -> K (R,) tensors, the rows' sums of the cotangents grads[k]
     (N,) (any strides; None for zeros) in the module docstring's order."""
-    device, n, k = idx.device, idx.shape[0], len(grads)
-    _check_sizes(rows, k, n)
-    _check("idx", idx, (n,), torch.int64, device)
-    given = [g for g in grads if g is not None]
-    if not given:
+    k = len(grads)
+    if all(g is None for g in grads):
+        _check_sizes(rows, k, idx.shape[0])
         raise ValueError("rows_select_bwd: every cotangent is None")
-    for g in given:
-        _check("a cotangent", g, (n,), None if device.type == "cpu" else torch.float32, device)
-    if device.type == "cpu":
-        _check_range(idx, rows)
-        g = torch.stack([torch.zeros_like(given[0]) if x is None else x for x in grads], dim=1)
+    if not idx.is_cuda:
+        n = idx.shape[0]
+        _cpu_inputs("a cotangent", grads, idx, n, rows, k)
+        given = next(x for x in grads if x is not None)
+        g = torch.stack([torch.zeros_like(given) if x is None else x for x in grads], dim=1)
         return tuple(rows_select_bwd_plain(g, idx, rows).unbind(1))
-    if device.type != "cuda":
-        raise ValueError(f"rows_select_bwd: unsupported device {device}")
-    out = torch.empty((k, rows), dtype=torch.float32, device=device)
+    n, dev = _cuda_index(idx, rows, k)
+    cols = _columns("a cotangent", grads, n, dev)
+    out = torch.empty((k, rows), dtype=_F32, device=dev)
     if n == 0:
         return out.zero_().unbind(0)
-    idx = idx.contiguous()
-    part = torch.empty(-(-n // CHUNK) * rows * k, dtype=torch.float32, device=device)
-    gs, strides = _pointers(grads)
-    lib = _load()
-    with torch.cuda.device(device):
-        _launch("rows_select_bwd", lib.rows_select_bwd_launch, gs, strides, idx.data_ptr(), n,
-                rows, k, part.data_ptr(), out.data_ptr(),
-                torch.cuda.current_stream(device).cuda_stream)
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("rows_select_bwd: K7b's ticket counter cannot be captured into a "
+                           "CUDA graph")
+    part = torch.empty(-(-n // CHUNK) * (-(-rows * k // 4) * 4), dtype=_F32, device=dev)
+    ticket = _ticket(dev, torch._C._cuda_getCurrentRawStream(dev))
+    _launch("rows_select_bwd", (_lib or _load()).rows_select_bwd_launch, dev,
+            _K7B_ARGS[k].pack(n, rows, k, idx.contiguous().data_ptr(), part.data_ptr(),
+                              ticket.data_ptr(), out.data_ptr(), *cols))
     rows_select_bwd.launches += 1
     return out.unbind(0)
 
@@ -237,7 +296,7 @@ class RowsSelect(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(idx)
         ctx.rows = columns[0].shape[0]
-        return rows_select(columns, idx)
+        return rows_select(columns, idx).unbind(0)
 
     @staticmethod
     def backward(ctx, *grads):

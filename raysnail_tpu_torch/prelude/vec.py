@@ -28,17 +28,24 @@ def take_rows(columns: Sequence[torch.Tensor], idx: torch.Tensor) -> tuple:
     """The rows of a table of K float columns (each (R,), K <= 8) gathered
     by per-ray indices: -> K tensors of idx's shape, each column[idx].
 
-    One select (`ops.rows_select.RowsSelect`) for all K columns: on the card
-    the gather kernel K7 and, under autograd, its backward K7b, which sums
-    each row's rays' cotangents in one fixed order, so a gradient repeats
-    bit for bit from run to run. The JAX package selects these rows with a
-    one-hot on an accelerator (geometry/hit.py `select_table`), whose
-    transpose XLA sums in a fixed order too. A gather's usual backward,
-    index_add_, adds 400,000 rays into a few rows with atomics in no fixed
-    order. The values are those of column[idx]; each index must lie in
-    [0, R)."""
-    out = rows_select.RowsSelect.apply(idx.reshape(-1).long(), *columns)
-    return tuple(c.reshape(idx.shape) for c in out)
+    One select for all K columns: on the card the gather kernel K7
+    (`ops.rows_select.rows_select`) and, when a gradient is wanted (grad
+    mode on and a column that requires grad, `spheres.intersect`'s rule),
+    the autograd Function `RowsSelect`, whose backward K7b sums each row's
+    rays' cotangents in one fixed order, so a gradient repeats bit for bit
+    from run to run. A frame, and pass 1 of a train step under no_grad,
+    call K7 directly. The JAX package selects these rows with a one-hot on
+    an accelerator (geometry/hit.py `select_table`), whose transpose XLA
+    sums in a fixed order too. A gather's usual backward, index_add_, adds
+    400,000 rays into a few rows with atomics in no fixed order. The values
+    are those of column[idx]; each index must lie in [0, R)."""
+    flat = idx.reshape(-1)
+    if flat.dtype is not torch.int64:
+        flat = flat.long()
+    if torch.is_grad_enabled() and any(c.requires_grad for c in columns):
+        out = rows_select.RowsSelect.apply(flat, *columns)
+        return out if idx.dim() == 1 else tuple(c.reshape(idx.shape) for c in out)
+    return rows_select.rows_select(columns, flat).reshape(len(columns), *idx.shape).unbind(0)
 
 
 class Vec3:

@@ -784,7 +784,7 @@ def test_rows_select_kernels_match_plain(cuda_device, rows, n, k):
     if n > 100:
         g[50, 0] = float("nan")
     before = (rs.rows_select.launches, rs.rows_select_bwd.launches)
-    out = torch.stack(rs.rows_select(table.unbind(1), idx), 1)  # strided columns
+    out = rs.rows_select(table.unbind(1), idx).t()  # strided columns
     grads = [torch.stack(rs.rows_select_bwd(g.unbind(1), idx, rows), 1) for _ in range(2)]
     launched = n > 0
     assert (rs.rows_select.launches, rs.rows_select_bwd.launches) == (
@@ -801,6 +801,59 @@ def test_rows_select_kernels_match_plain(cuda_device, rows, n, k):
     gc = [c.contiguous() for c in g.unbind(1)]
     assert torch.equal(torch.nan_to_num(torch.stack(rs.rows_select_bwd(gc, idx, rows), 1),
                                         nan=7.0), torch.nan_to_num(want, nan=7.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["shuffled", "many"])
+@pytest.mark.parametrize("rows,k", [(8, 4), (10, 6), (455, 4), (1024, 4)])
+def test_rows_select_bwd_matches_plain_on_shuffled_and_many_row_segments(cuda_device, order,
+                                                                          rows, k):
+    """K7b bit-equal to its plain version where a segment holds many rows:
+    a random permutation of sorted runs (the regen-shuffle integrator's
+    bounce rays), and segments of 8 or more rows each; both routes (one
+    launch at R x K <= 64, a second launch above) and the row tiles."""
+    from raysnail_tpu_torch.ops import rows_select as rs
+
+    n = 300_017
+    rng = np.random.default_rng(rows * k)
+    idx = rng.permutation(np.sort(rng.integers(0, rows, n)))
+    if order == "many":
+        seg = idx[: n - n % 32].reshape(-1, 32)
+        seg[:] = np.repeat(rng.permuted(np.tile(np.arange(rows), (len(seg), 1)),
+                                        axis=1)[:, :8], 4, axis=1)
+    idx = torch.from_numpy(idx).to(cuda_device)
+    g = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).to(cuda_device)
+    got = [torch.stack(rs.rows_select_bwd(g.unbind(1), idx, rows), 1) for _ in range(2)]
+    want = rs.rows_select_bwd_plain(g, idx, rows)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x.view(torch.int32), want.view(torch.int32)) for x in got)
+
+
+@pytest.mark.cuda
+def test_rows_select_bwd_on_two_streams(cuda_device):
+    """K7b launched on two streams at once (each stream its own ticket
+    counter) gives each launch its plain version's bits."""
+    from raysnail_tpu_torch.ops import rows_select as rs
+
+    rng = np.random.default_rng(5)
+    n, rows = 400_000, 8
+    cases = []
+    for _ in range(2):
+        idx = torch.from_numpy(rng.permutation(np.sort(rng.integers(0, rows, n))))
+        g = torch.from_numpy(rng.standard_normal((n, 4)).astype(np.float32))
+        cases.append((idx.to(cuda_device), g.to(cuda_device)))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = [[], []]
+    for _ in range(20):
+        for j, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                got[j].append(torch.stack(rs.rows_select_bwd(cases[j][1].unbind(1),
+                                                             cases[j][0], rows), 1))
+    torch.cuda.synchronize()
+    for (idx, g), outs in zip(cases, got):
+        want = rs.rows_select_bwd_plain(g, idx, rows)
+        assert all(torch.equal(x, want) for x in outs)
 
 
 @pytest.mark.cuda
