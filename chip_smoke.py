@@ -40,10 +40,18 @@ and exits non-zero if any fails:
               iteration of the longest); each warp's idle share (a warp
               runs until its slowest ray is done); call, device and plain
               ms, the bound and the issue floor without FMA.
-              Every traversal probe (ray I/O, walk, sweep, walk latency, the
-              V0-V8 bisect) against its plain version, on the probes' own
-              case knot-9600 and on mesh-200k: integers and min-t bit for
-              bit, the near accumulator within probes.ACC_RTOL. The rows'
+              The traversal kernels' probe forms (`bvh_traverse_form`: the
+              TPU kernel's _NOSWEEP and _NOATTR) per ray and per packet on
+              the tri, box and sphere cases: bit for bit their plain
+              versions in t and every counter, the no-attributes t the full
+              kernel's, every ray a miss without the sweep; device ms a
+              call. Every traversal probe (ray I/O on the case's rays tiled
+              to 16,384,000, walk, sweep, walk latency, the V0-V8 bisect)
+              against its plain version, on the probes' own case knot-9600
+              and on mesh-200k: integers and min-t bit for bit, the near
+              accumulator within probes.ACC_RTOL; there also both traversal
+              kernels in their three forms, the split of their device time
+              into walk and deferral, sweep and attributes. The rows'
               select K7 and its fixed-order transpose K7b on the material
               rows of the hits of example.sdl's and the static book 1
               frame's primary rays (K = 4), example.sdl's texture rows of
@@ -69,7 +77,8 @@ and exits non-zero if any fails:
               anchors forced through the packet kernel in every (kind, stream,
               two_level) mode, each against its anchor's statistics
   5. main     the probes' entry point, probes.main(["all", "--case",
-              "mesh-200k"]), with every probe's launch count read after it;
+              "mesh-200k"]), with every probe's and form's launch count
+              read after it;
               the canonical frame, example.sdl at 800x500@64spp (a warm-up
               through the CLI, then a timed run of the same calls, which
               must launch K7 in every shade iteration); one
@@ -829,6 +838,54 @@ def check_packet_kernel(kind, args, cut, t_min, t_max, label: str, time_it: bool
     return res
 
 
+def check_forms(kind, args, t_min, t_max, label: str) -> dict:
+    """The traversal kernels' probe forms (`bvh_traverse_form`: the TPU
+    kernel's _NOSWEEP and _NOATTR) of `kind`, per ray and per packet, on a
+    K2-K4 case: each form bit for bit its plain version in t and every
+    counter, the no-attributes t the full kernel's, the no-sweep form a miss
+    on every ray. -> {(form, shape): device ms a call, the full form's, the
+    sweeps and the bound of the case's work}; its launches are not the main
+    path's."""
+    from raysnail_tpu_torch.ops import bvh_traverse as bt
+
+    res = {}
+    with counts_kept():
+        for packet in (False, True):
+            shape = "packet" if packet else "per-ray"
+            full = lambda: bt.bvh_traverse(*args, t_min, t_max, kind=kind, packet=packet,
+                                           stream=False, two_level=False)
+            full_t = full()[0]
+            full_ms = device_ms(full)
+            for form in bt.FORMS:
+                call = lambda: bt.bvh_traverse_form(form, *args, t_min, t_max, kind=kind,
+                                                    packet=packet)
+                got = call()
+                stats = {}
+                ref = bt.bvh_traverse_form_plain(form, *args, t_min, t_max, kind=kind,
+                                                 packet=packet, stats=stats)
+                torch.cuda.synchronize()
+                same = {name: bool(torch.equal(a, b))
+                        for name, a, b in zip(bt.FormOut._fields, got, ref) if a is not None}
+                t_ok = (bool(torch.equal(got.t, full_t)) if form == "noattr"
+                        else bool((got.t == BIG).all()))
+                n = args[0][0].shape[0]
+                ops = stats["node_tests"] * NODE_FLOPS + stats["sweeps"] * 128 * PAIR_FLOPS[kind]
+                n_bytes = (n * (7 + (2 if form == "noattr" else 4)) * 4 + stats["nodes"] * 48
+                           + stats["leaves"] * bt.STAGED_FLOATS[kind] * 4)
+                res[form, shape] = {"device_ms": device_ms(call), "full_device_ms": full_ms,
+                                    "sweeps": int(got.sweeps.sum()), **bound(n_bytes, ops)}
+                phase("kernels", f"form {form} {kind} {shape} {label}: N={n}; outputs equal "
+                      f"the plain version's {same}, "
+                      f"{'t equals the full form' if form == 'noattr' else 'every ray misses'}"
+                      f": {t_ok}; {res[form, shape]['sweeps']} (ray, leaf) sweeps; device ms "
+                      f"a call {res[form, shape]['device_ms']!r} (full form {full_ms!r}), bound "
+                      f"{res[form, shape]['bound_ms']!r} by {res[form, shape]['bound_by']}")
+                if not (all(same.values()) and t_ok):
+                    raise AssertionError(f"form {form} {kind} {shape} {label}: disagrees "
+                                         f"({same}, t {t_ok})")
+    return res
+
+
 def random_rays(gen, n, lo, hi, device):
     """n rays with origins uniform in the box [lo, hi] and random unit
     directions; a finite t_cap on a third, dead lanes (t_cap -1) on a
@@ -1006,6 +1063,7 @@ class Counters:
         from raysnail_tpu_torch.ops import rows_select as rs
         from raysnail_tpu_torch.ops import sphere_min_t as smt
         self.smt, self.bt, self.bp = smt.sphere_min_t, bt.bvh_traverse, bp
+        self.forms = bt.bvh_traverse_form
         self.mm = mm.mandelbulb_march
         self.bwd = smt.sphere_min_t_bwd
         self.rs, self.rs_bwd = rs.rows_select, rs.rows_select_bwd
@@ -1015,6 +1073,7 @@ class Counters:
         self.bwd.launches = self.bwd.moving_launches = 0
         self.rs.launches = self.rs_bwd.launches = 0
         self.bt.launches = {k: 0 for k in self.bt.launches}
+        self.forms.launches = {k: 0 for k in self.forms.launches}
         for k in self.bp.launches:
             self.bp.launches[k] = 0
 
@@ -1027,6 +1086,7 @@ class Counters:
                 "rows_select": self.rs.launches,
                 "rows_select_bwd": self.rs_bwd.launches,
                 **{f"bvh_traverse/{k}": v for k, v in self.bt.launches.items()},
+                **{f"bvh_traverse_form/{k}": v for k, v in self.forms.launches.items()},
                 **{f"probe/{k}": v for k, v in self.bp.launches.items()}}
 
 
@@ -1277,6 +1337,11 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     if mxu_edge > MXU_EDGE_SHARE * int(both.sum()) or mxu_mask > MXU_EDGE_SHARE * ta.numel():
         raise AssertionError("tri_mxu disagrees with tri beyond its stated tolerance")
 
+    # the traversal kernels' probe forms on the K2-K4 cases (tri: mesh-200k's
+    # sphere-capped primary rays)
+    res_forms = {k: check_forms(k, cases[k], mcfg.t_min, mcfg.t_max, labels[k])
+                 for k in ("tri", "box", "sphere")}
+
     # the traversal probes on their own case and on mesh-200k: probes.run
     # holds each against its plain version and raises on a disagreement
     probe_records, probe_cases, probe_plain = {}, {}, {}
@@ -1291,11 +1356,12 @@ def run(device: torch.device, card: str, profile: bool) -> list:
         probe_records[case_name] = probes.run(
             "all", pcase, out=lambda line, c=case_name: phase("kernels", f"probe {c} {line}"),
             plain=probe_plain[case_name])
-        n_equal = sum(r["bit_equal"] for r in probe_records[case_name])
-        phase("kernels", f"probes, case {case_name}: {len(probe_records[case_name])} probes "
+        probe_only = [r for r in probe_records[case_name] if r["name"] in bp.launches]
+        n_equal = sum(r["bit_equal"] for r in probe_only)
+        phase("kernels", f"probes, case {case_name}: {len(probe_only)} probes "
               f"held against their plain versions, {n_equal} of them bit for bit in every "
-              f"output, in {time.perf_counter() - t0:.2f} s")
-        if len(probe_records[case_name]) != len(bp.launch_keys()):
+              f"output, and the traversal kernels' forms, in {time.perf_counter() - t0:.2f} s")
+        if len(probe_only) != len(bp.launch_keys()):
             raise AssertionError("a probe was not run")
     if tuple(ptri.pk_bb.shape) != tuple(tri.pk_bb.shape):
         raise AssertionError("the probes' mesh-200k is not the render path's mesh-200k")
@@ -1345,8 +1411,10 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     phase("main", f"probes.main(all, mesh-200k) returned {rc} in "
           f"{time.perf_counter() - t0:.2f} s; launches "
           f"{ {k: v for k, v in probe_launches.items() if k.startswith('probe/')} }")
-    if rc != 0 or any(probe_launches[f"probe/{k}"] == 0 for k in bp.launch_keys()):
-        raise AssertionError("the probes' entry point did not launch every probe")
+    form_keys = [bt.form_key(f, "tri", p) for f in bt.FORMS for p in (False, True)]
+    if rc != 0 or any(probe_launches[f"probe/{k}"] == 0 for k in bp.launch_keys()) or any(
+            probe_launches[f"bvh_traverse_form/{k}"] == 0 for k in form_keys):
+        raise AssertionError("the probes' entry point did not launch every probe and form")
 
     argv = ["--scene", SCENE, "-w", str(WIDTH), "--height", str(HEIGHT),
             "--samples", str(SAMPLES), "--device", "cuda"]
@@ -1745,6 +1813,8 @@ def run(device: torch.device, card: str, profile: bool) -> list:
                 "latency/w1024": lat + "84", "latency/cap": lat + "185",
                 "latency/buf": lat + "185", "variant": "scripts/kern_walkvar.py:259"}
     for rec in probe_records["mesh-200k"]:
+        if rec["name"] not in bp.launches:
+            continue
         key = rec["launch_key"]
         records.append({"name": f"probe/{key}", "route": "cuda", "source": src + "bvh_probes.cu",
                         "replaces": replaces.get(key) or replaces[key.split("/")[0]],
@@ -1753,6 +1823,31 @@ def run(device: torch.device, card: str, profile: bool) -> list:
                         "plain_ms": rec["plain_ms"], **bound(rec["bytes"], rec["flops"]),
                         # per launch over probes.LATENCY_REPS launches back to back
                         "ms_back_to_back": rec["ms_back_to_back"]})
+    # the traversal kernels' probe forms (the TPU kernel's _NOSWEEP :231 and
+    # _NOATTR :323), kind tri at the entry point's case, with the full form's
+    # device ms and the split beside them; box and sphere on their K3 and K4
+    # cases
+    forms = {tuple(r["name"].split("/")[1:]): r for r in probe_records["mesh-200k"]
+             if r["name"].startswith("traversal/")}
+    for (form, shape), rec in forms.items():
+        if form == "full":
+            continue
+        packet = shape == "packet"
+        key = bt.form_key(form, "tri", packet)
+        full = forms["full", shape]
+        records.append({"name": f"bvh_traverse_form/{key}", "route": "cuda",
+                        "source": src + ("bvh_packet.cu" if packet else "bvh_traverse.cu"),
+                        "replaces": tpu + ("231" if form == "nosweep" else "323"),
+                        "launches": probe_launches[f"bvh_traverse_form/{key}"],
+                        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                        "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
+                        **bound(rec["bytes"], rec["flops"]), "sweeps": rec["sweeps"],
+                        "full_ms": full["ms"], "full_device_ms": full["device_ms"],
+                        "full_bound_ms": bound(full["bytes"], full["flops"])["bound_ms"],
+                        "split_ms": full["split"],
+                        **{f"{k}_{name}": res_forms[k][form, shape][name]
+                           for k in ("box", "sphere")
+                           for name in ("device_ms", "full_device_ms", "bound_ms")}})
     k1b = train["cases"]
     a, book1_s, moving = (k1b[k] for k in k1b)
     records.append({"name": "sphere_min_t_bwd", "route": "cuda", "source": src + "sphere_min_t.cu",
@@ -2446,6 +2541,7 @@ def counts_kept():
     saved = (smt.sphere_min_t.launches, smt.sphere_min_t.moving_launches,
              smt.sphere_min_t_bwd.launches, smt.sphere_min_t_bwd.moving_launches,
              mm.mandelbulb_march.launches, dict(bt.bvh_traverse.launches),
+             dict(bt.bvh_traverse_form.launches),
              rs.rows_select.launches, rs.rows_select_bwd.launches)
     try:
         yield
@@ -2453,55 +2549,18 @@ def counts_kept():
         (smt.sphere_min_t.launches, smt.sphere_min_t.moving_launches,
          smt.sphere_min_t_bwd.launches, smt.sphere_min_t_bwd.moving_launches,
          mm.mandelbulb_march.launches, bt.bvh_traverse.launches,
+         bt.bvh_traverse_form.launches,
          rs.rows_select.launches, rs.rows_select_bwd.launches) = saved
 
 
-SPIN_CYCLES = int(2e8)  # about 0.1 s at the H100's 1.98 GHz: longer than queuing the calls
-L2_FLUSH_BYTES = 128 << 20  # written between calls by device_ms(cold=True): 2.5x the L2
-
-
 def device_ms(fn, runs: int = TIMING_RUNS, cold: bool = False) -> float:
-    """Device milliseconds per call of `fn`: after a warm-up, `runs` calls
-    queued behind a spin kernel (torch.cuda._sleep), so that the card runs
-    them back to back, timed between two CUDA events. Raises if queuing the
-    calls outlasted the spin, when host time would have entered.
-    cold=True writes L2_FLUSH_BYTES before each call, outside its events
-    (a pair of events a call, their times summed), so that the call finds
-    its inputs in device memory and not in the 50 MB L2 cache."""
+    """Device milliseconds per call of `fn` (`probes.device_ms`: `runs`
+    calls queued behind a spin kernel, CUDA events; cold=True writes 128 MB
+    before each call); every kernel's launch count is left as it was."""
+    from raysnail_tpu_torch import probes
+
     with counts_kept():
-        fn()
-        torch.cuda.synchronize()
-        flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda") if cold else None
-        pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-                 for _ in range(runs if cold else 1)]
-        start, end = pairs[0][0], pairs[-1][1]
-        torch.cuda._sleep(SPIN_CYCLES)
-        t0 = time.perf_counter()
-        if cold:
-            for i, (a, b) in enumerate(pairs):
-                flush.fill_(float(i))
-                a.record()
-                fn()
-                b.record()
-        else:
-            start.record()
-            for _ in range(runs):
-                fn()
-            end.record()
-        queued = time.perf_counter() - t0
-        end.synchronize()
-        spin = torch.cuda.Event(enable_timing=True)
-        spun = torch.cuda.Event(enable_timing=True)
-        spin.record()
-        torch.cuda._sleep(SPIN_CYCLES)
-        spun.record()
-        spun.synchronize()
-    if queued * 1e3 >= spin.elapsed_time(spun):
-        raise AssertionError(f"device_ms: queuing {runs} calls took {queued:.4f} s, longer "
-                             f"than the spin kernel")
-    if cold:
-        return sum(a.elapsed_time(b) for a, b in pairs) / runs
-    return start.elapsed_time(end) / runs
+        return probes.device_ms(fn, runs, cold)
 
 
 def sphere_crossover(gen, device):

@@ -50,7 +50,8 @@
 // valid row, 20,992 B) are copied from global memory into the warp's own
 // ring of shared-memory slots (Shape<KIND>::ring: 2, tri_mxu 1, which is
 // then the most it defers) by the bulk copy engine (TMA, 1-D
-// cp.async.bulk: one lane asks, no lane spends an instruction on the copy),
+// cp.async.bulk, bvh_stage.cuh: one lane asks, no lane spends an
+// instruction on the copy),
 // started the moment the leaf is collected, so that the rest of the walk
 // hides it; each slot has an mbarrier, and a sweep waits only for its own
 // slot's (:519-535). Without `stream` the sweep reads the same rows
@@ -77,10 +78,20 @@
 // -fmad=false and IEEE division and square root, so each product, sum and
 // quotient rounds as the plain version's elementwise operations round it.
 //
-// The C entry point launches on the caller's stream, does not synchronise,
-// allocates nothing, and returns cudaGetLastError().
+// Probe forms (bvh_sweep.cuh `Form`), the counterparts of the TPU kernel's
+// switches _NOSWEEP and _NOATTR (bvh_pallas.py:78-79), for the kinds tri,
+// box and sphere with `stream` and `two_level` off: kNoSweep runs the
+// warps' walks, the cap, the deferral and the drain rounds with each ray's
+// fresh re-test, sweeps nothing, and writes per ray t (BIG), the leaves
+// its drain admitted, its warp's node steps and its warp's drain rounds;
+// kNoAttr runs all but the epilogue's attribute reads and blend, and
+// writes t and the ray's (ray, leaf) sweeps. No render path launches them
+// (bvh_packet_form_launch).
+//
+// The C entry points launch on the caller's stream, do not synchronise,
+// allocate nothing, and return cudaGetLastError().
 
-#include "bvh_sweep.cuh"
+#include "bvh_stage.cuh"
 
 namespace {
 
@@ -90,50 +101,7 @@ constexpr int kPacket = 128;     // rays per packet = threads per block
 constexpr int kWarps = kPacket / 32;
 constexpr int kCoarseMax = 64;   // cut entries per octant, padding included
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned bytes,
-                                          unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-// one thread: start the copy of one leaf's sweep rows into a ring slot with
-// the bulk copy engine (TMA, 1-D); the mbarrier at `bar_ptr` completes its
-// phase when all the bytes have landed. tri_mxu: rows 0-9 of the solve
-// table (640-lane rows in global memory, 512-lane rows in the slot), then
-// the valid row (row 0 of the attribute table)
-template <int KIND>
-__device__ __forceinline__ void stage(float* dst, const float* src,
-                                      unsigned long long* bar_ptr) {
-  const unsigned bar = smem_addr(bar_ptr);
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"((unsigned)(Shape<KIND>::staged * sizeof(float))) : "memory");
-  if (KIND == kTriMxu) {
-    for (int row = 0; row < 10; ++row)
-      bulk_copy(dst + row * kSolveLanes, src + row * kMxuLanes, kSolveLanes * 4, bar);
-    bulk_copy(dst + 10 * kSolveLanes, src + kSolveLanes, kLanes * 4, bar);
-  } else {
-    bulk_copy(dst, src, Shape<KIND>::staged * 4, bar);
-  }
-}
-
-// every lane: wait for the phase of `bar_ptr` with the given parity to end
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar_ptr, unsigned parity) {
-  const unsigned bar = smem_addr(bar_ptr);
-  unsigned done;
-  do {
-    asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
-        "selp.u32 %0, 1, 0, p; }\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-template <int KIND, bool STREAM>
+template <int KIND, bool STREAM, int FORM>
 __global__ void __launch_bounds__(kPacket)
 bvh_packet_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                   const float* __restrict__ oz, const float* __restrict__ dx,
@@ -142,7 +110,8 @@ bvh_packet_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                   const int32_t* __restrict__ links, const float* __restrict__ prim,
                   const float* __restrict__ cbb, const int32_t* __restrict__ crange,
                   int n, int m, int k_orders, int two_level, float t_min, float t_max,
-                  float* __restrict__ out, int32_t* __restrict__ mat_out) {
+                  float* __restrict__ out, int32_t* __restrict__ mat_out,
+                  int32_t* __restrict__ counts) {
   // the leaves a warp defers: a ring slot each when they are staged
   constexpr int depth = STREAM ? Shape<KIND>::ring : kDepth;
   extern __shared__ __align__(16) float ring[];  // kWarps rings of depth slots
@@ -210,13 +179,12 @@ bvh_packet_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
   unsigned long long* wbar = s_bar[tid >> 5];
   unsigned phases = 0;  // bit j: the parity of slot j's next phase
   if (STREAM) {
-    if (lane < depth)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(wbar + lane))
-                   : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (lane < depth) mbar_init(wbar + lane);
+    mbar_fence_init();
     __syncwarp();
   }
   Best best{kBig, 0, 0, 0.f, 0.f};
+  int steps = 0, sweeps = 0, drained = 0;  // the probe forms' counters
   int my_node = 0, my_blk = 0;  // lane j keeps the warp's j-th deferred leaf
   int node = 0;
   int end = two_level ? 0 : m;  // two_level starts before the first cut entry
@@ -235,6 +203,7 @@ bvh_packet_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
         continue;
       }
       const int4 lk = __ldg(lko + node);
+      if (FORM == kNoSweep) ++steps;
       const bool vote = __any_sync(
           kFull, admits<true>(bbo + (size_t)node * 8, r, t_min, fminf(best.t, cap)));
       if (vote && lk.y > 0) {
@@ -250,6 +219,7 @@ bvh_packet_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
       }
     }
     if (nbuf == 0) break;
+    if (FORM == kNoSweep) drained += nbuf;
     for (int j = 0; j < nbuf; ++j) {
       const int nd = __shfl_sync(kFull, my_node, j);
       const int blk = __shfl_sync(kFull, my_blk, j);
@@ -261,30 +231,38 @@ bvh_packet_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
       const bool adm = admits<true>(bbo + (size_t)nd * 8, r, t_min, fminf(best.t, cap));
       const float* p = STREAM ? wring + (size_t)j * Shape<KIND>::staged
                               : prim + (size_t)blk * Shape<KIND>::block;
-      sweep_round<KIND, STREAM, true>(adm, blk, p, prim, r, t_min, t_max, lane, best);
+      if (FORM != kNoSweep)
+        sweep_round<KIND, STREAM, true>(adm, blk, p, prim, r, t_min, t_max, lane, best);
+      if (FORM != kFullForm) sweeps += adm;
     }
     if (STREAM) __syncwarp();  // every lane has read the ring: lane 0 may refill it
   }
-  if (live) write_hit<KIND>(prim, r, best, i, n, out, mat_out);
+  if (live) {
+    if (FORM == kFullForm) {
+      write_hit<KIND>(prim, r, best, i, n, out, mat_out);
+    } else {
+      write_form<FORM>(best.t, sweeps, steps, drained, i, n, out, counts);
+    }
+  }
 }
 
-template <int KIND, bool STREAM>
+template <int KIND, bool STREAM, int FORM>
 int launch(const void* ox, const void* oy, const void* oz, const void* dx, const void* dy,
            const void* dz, const void* t_cap, const void* bb, const void* links,
            const void* prim, const void* cbb, const void* crange, int n, int m,
            int k_orders, int two_level, float t_min, float t_max, void* out, void* mat_out,
-           cudaStream_t s) {
+           void* counts, cudaStream_t s) {
   constexpr size_t smem =
       STREAM ? (size_t)kWarps * Shape<KIND>::ring * Shape<KIND>::staged * sizeof(float) : 0;
   static_assert(smem <= 227 * 1024, "the rings exceed a block's opt-in shared memory");
   if (smem > 48 * 1024) {  // the large carve-out is opt-in
     const cudaError_t e = cudaFuncSetAttribute(
-        bvh_packet_kernel<KIND, STREAM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bvh_packet_kernel<KIND, STREAM, FORM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int blocks = (n + kPacket - 1) / kPacket;
-  bvh_packet_kernel<KIND, STREAM><<<blocks, kPacket, smem, s>>>(
+  bvh_packet_kernel<KIND, STREAM, FORM><<<blocks, kPacket, smem, s>>>(
       static_cast<const float*>(ox), static_cast<const float*>(oy),
       static_cast<const float*>(oz), static_cast<const float*>(dx),
       static_cast<const float*>(dy), static_cast<const float*>(dz),
@@ -292,7 +270,7 @@ int launch(const void* ox, const void* oy, const void* oz, const void* dx, const
       static_cast<const int32_t*>(links), static_cast<const float*>(prim),
       static_cast<const float*>(cbb), static_cast<const int32_t*>(crange), n, m,
       k_orders, two_level, t_min, t_max, static_cast<float*>(out),
-      static_cast<int32_t*>(mat_out));
+      static_cast<int32_t*>(mat_out), static_cast<int32_t*>(counts));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -309,8 +287,9 @@ extern "C" int bvh_packet_launch(int kind, const void* ox, const void* oy, const
   if (two_level && (!cbb || !crange)) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
 #define ARGS ox, oy, oz, dx, dy, dz, t_cap, bb, links, prim, cbb, crange, n, m, k_orders, \
-             two_level, t_min, t_max, out, mat_out, s
-#define LAUNCH(K) return stream_leaves ? launch<K, true>(ARGS) : launch<K, false>(ARGS)
+             two_level, t_min, t_max, out, mat_out, nullptr, s
+#define LAUNCH(K) \
+  return stream_leaves ? launch<K, true, kFullForm>(ARGS) : launch<K, false, kFullForm>(ARGS)
   switch (kind) {
     case kTri: LAUNCH(kTri);
     case kBox: LAUNCH(kBox);
@@ -319,5 +298,35 @@ extern "C" int bvh_packet_launch(int kind, const void* ox, const void* oy, const
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef LAUNCH
+#undef ARGS
+}
+
+// A probe form (kNoSweep 1, kNoAttr 2) of the kinds tri, box and sphere,
+// `stream` and `two_level` off: t (n,) f32; counts (3, n) i32 for kNoSweep
+// (sweeps its drain admitted, its warp's node steps, its warp's drain
+// rounds), (n,) for kNoAttr (sweeps)
+extern "C" int bvh_packet_form_launch(int form, int kind, const void* ox, const void* oy,
+                                      const void* oz, const void* dx, const void* dy,
+                                      const void* dz, const void* t_cap, const void* bb,
+                                      const void* links, const void* prim, int n, int m,
+                                      int k_orders, float t_min, float t_max, void* t_out,
+                                      void* counts, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+#define ARGS ox, oy, oz, dx, dy, dz, t_cap, bb, links, prim, nullptr, nullptr, n, m, \
+             k_orders, 0, t_min, t_max, t_out, nullptr, counts, s
+#define FORMS(K)                                                          \
+  switch (form) {                                                         \
+    case kNoSweep: return launch<K, false, kNoSweep>(ARGS);               \
+    case kNoAttr: return launch<K, false, kNoAttr>(ARGS);                 \
+    default: return static_cast<int>(cudaErrorInvalidValue);             \
+  }
+  switch (kind) {
+    case kTri: FORMS(kTri);
+    case kBox: FORMS(kBox);
+    case kSphere: FORMS(kSphere);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FORMS
 #undef ARGS
 }

@@ -29,13 +29,28 @@
 //       (C). MODE buf: plus the leaf-id buffer and the loop in chunks of at
 //       most 8 leaves (D).
 //   probe_sweep_kernel<W>   the Cramer sweep of blocks 0..n_blocks-1 for
-//       every ray, no walk: W = 1 with bvh_traverse.cu's one-word loads,
-//       W = 128 with bvh_packet.cu's 16-byte loads.
-//   probe_variant_kernel<V, W>   the bisect, W = 1 or 128: V0 the plain walk,
-//       V1 + take and leaf count, V2 + buffer store, V3 + nested chunk loops,
-//       V4 + Cramer sweep of the buffered blocks, V5 the sweep of blocks
-//       0..nbuf-1 instead (no dependent block id), V7 + five attribute
-//       carries, V8 + the packet kernel's output record.
+//       every ray, no walk.
+//   probe_variant_kernel<V, W>   the bisect's walk, W = 1 or 128: V0 the
+//       plain walk, V1 + take and leaf count, V2 + buffer store, V3 +
+//       nested chunk loops; probe_sweep_variant_kernel<V, W> V4 + the Cramer
+//       sweep of the buffered blocks, V5 the sweep of blocks 0..nbuf-1
+//       instead (no dependent block id), V7 + five attribute carries, V8 +
+//       the packet kernel's output record. The walk admits by the slab
+//       alone, with no best-t pruning and no cap, so V4 sweeps every leaf a
+//       ray's slab admits: V3 and V4 are not the traversal with its sweep or
+//       its attributes switched off. Those are the traversal kernels' own
+//       probe forms (bvh_sweep.cuh `Form`).
+//
+// The sweeps (P1c, V4-V8) are the traversal kernels' own, bvh_sweep.cuh's
+// `sweep_round`: the warp sweeps each (ray, leaf) primitive-parallel, one
+// ray after another, lane l testing primitives 4l..4l+3, with a butterfly
+// min over (t, index). The ray shape (W = 1) sweeps as bvh_traverse.cu
+// does: each lane its own leaf, read from global memory and L2, in rounds
+// of the warp's longest buffer. The packet shape (W = 128) sweeps as
+// bvh_packet.cu's `stream` mode does, in uniform rounds from shared memory:
+// the packet's leaves are staged by the bulk copy engine (bvh_stage.cuh)
+// into a ring of slots that the block's four warps read, each slot's copy
+// started when its leaf is taken (P1c: the next block while one is swept).
 //
 // Every probe writes what decides its work: its float result and exact
 // integers (node steps, leaves taken, blocks swept, wins, the last leaf
@@ -48,43 +63,38 @@
 //
 // What bounds them on this card: the I/O probes bytes; the walks latency (a
 // dependent 32-byte node load and, for packets, one vote per node); the
-// sweeps FP32 operations. Built with -fmad=false and IEEE division, so each
+// sweeps FP32 operations, three IEEE divisions of each (ray, triangle)
+// test among them. Built with -fmad=false and IEEE division, so each
 // product, sum and quotient rounds as the plain version's elementwise
 // operations round it.
 //
 // The C entry points launch on the caller's stream, do not synchronise,
 // allocate nothing, and return cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bvh_stage.cuh"
+#include "bvh_sweep.cuh"
 
 namespace {
 
-constexpr int kLanes = 128;       // primitives per leaf block
-constexpr int kTriFloats = 24 * kLanes;
+using bvh::kBig;
+using bvh::kFull;
+using bvh::safe_inv;
+using Ray = bvh::RayIn;     // ox..dz and the inverse directions
+
+constexpr int kTriFloats = bvh::Shape<bvh::kTri>::block;  // a triangle block
+constexpr int kStaged = bvh::Shape<bvh::kTri>::staged;    // its sweep rows 0-9
 constexpr int kChunk = 8;         // leaves per chunk of the buffered walk
 constexpr int kRow = 1024;        // rays per row tile of the I/O probes
 constexpr int kIoThreads = 256;
-constexpr float kBig = 1e30f;
 constexpr float kTMin = 1e-3f;
 constexpr float kAccScale = 1e-20f;
-constexpr unsigned kFull = 0xffffffffu;
 
 enum Layout { kSoa = 0, kRows = 1, kTranspose = 2, kPacked = 3 };
 enum WalkMode { kBt = 0, kPlain = 1, kCap = 2, kBuf = 3 };
 
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, ivx, ivy, ivz;
-};
-
 __device__ __forceinline__ float six_sum(float ox, float oy, float oz, float dx, float dy,
                                          float dz) {
   return ((((ox + dx) + oy) + dy) + oz) + dz;
-}
-
-__device__ __forceinline__ float safe_inv(float d) {
-  const float e = (fabsf(d) < 1e-12f) ? (d < 0.f ? -1e-12f : 1e-12f) : d;
-  return 1.0f / e;
 }
 
 __device__ __forceinline__ Ray load_ray(const float* ox, const float* oy, const float* oz,
@@ -95,20 +105,6 @@ __device__ __forceinline__ Ray load_ray(const float* ox, const float* oy, const 
   r.dx = live ? dx[i] : 0.f; r.dy = live ? dy[i] : 0.f; r.dz = live ? dz[i] : 0.f;
   r.ivx = safe_inv(r.dx); r.ivy = safe_inv(r.dy); r.ivz = safe_inv(r.dz);
   return r;
-}
-
-// slab test of one node's bounds [min.xyz, max.xyz, pad, pad] -> (near, far)
-__device__ __forceinline__ void slab(const float* bb, const Ray& r, float& near, float& far) {
-  const float4 p = __ldg(reinterpret_cast<const float4*>(bb));
-  const float4 q = __ldg(reinterpret_cast<const float4*>(bb) + 1);
-  const float ax0 = (p.x - r.ox) * r.ivx;
-  const float ax1 = (p.w - r.ox) * r.ivx;
-  const float ay0 = (p.y - r.oy) * r.ivy;
-  const float ay1 = (q.x - r.oy) * r.ivy;
-  const float az0 = (p.z - r.oz) * r.ivz;
-  const float az1 = (q.y - r.oz) * r.ivz;
-  near = fmaxf(fmaxf(fminf(ax0, ax1), fminf(ay0, ay1)), fminf(az0, az1));
-  far = fminf(fminf(fmaxf(ax0, ax1), fmaxf(ay0, ay1)), fmaxf(az0, az1));
 }
 
 // threads of a block that holds packets of W rays
@@ -160,60 +156,12 @@ __device__ __forceinline__ int packet_octant(const Ray& r, int k_orders, float (
   return (sx < 0.f) * 4 + (sy < 0.f) * 2 + (sz < 0.f);
 }
 
-// Cramer's-rule test of one triangle (bvh_pallas.py:253-271) -> t of a hit in
-// [kTMin, kBig], else kBig
-__device__ __forceinline__ float tri_t(float p0x, float p0y, float p0z, float ax, float ay,
-                                       float az, float ddx, float ddy, float ddz, float valid,
-                                       const Ray& r) {
-  const float j = p0x - r.ox;
-  const float k = p0y - r.oy;
-  const float ll = p0z - r.oz;
-  const float eihf = ddy * r.dz - r.dy * ddz;
-  const float gfdi = r.dx * ddz - ddx * r.dz;
-  const float dheg = ddx * r.dy - ddy * r.dx;
-  float denom = (ax * eihf + ay * gfdi) + az * dheg;
-  if (fabsf(denom) < 1e-20f) denom = 1e-20f;
-  const float beta = ((j * eihf + k * gfdi) + ll * dheg) / denom;
-  const float akjb = ax * k - j * ay;
-  const float jcal = j * az - ax * ll;
-  const float blkc = ay * ll - k * az;
-  const float gamma = ((r.dz * akjb + r.dy * jcal) + r.dx * blkc) / denom;
-  const float t = -((ddz * akjb + ddy * jcal) + ddx * blkc) / denom;
-  const bool ok = (beta >= 0.f) && (beta < 1.f) && (gamma > 0.f) && (beta + gamma < 1.f) &&
-                  (t >= kTMin) && (t <= kBig) && (valid > 0.f);
-  return ok ? t : kBig;
-}
-
-// sweep one block's 128 triangles for one ray -> min(bt, closest t). VEC: four
-// lanes from one 16-byte load per field (bvh_packet.cu), else one word per
-// field (bvh_traverse.cu)
-template <bool VEC>
-__device__ __forceinline__ float sweep_block(const float* p, const Ray& r, float bt) {
-  if (VEC) {
-    for (int l0 = 0; l0 < kLanes; l0 += 4) {
-      float4 F[10];
-#pragma unroll
-      for (int i = 0; i < 10; ++i) F[i] = __ldg(reinterpret_cast<const float4*>(p + i * kLanes + l0));
-      float t;
-      t = tri_t(F[0].x, F[1].x, F[2].x, F[3].x, F[4].x, F[5].x, F[6].x, F[7].x, F[8].x, F[9].x, r);
-      if (t < bt) bt = t;
-      t = tri_t(F[0].y, F[1].y, F[2].y, F[3].y, F[4].y, F[5].y, F[6].y, F[7].y, F[8].y, F[9].y, r);
-      if (t < bt) bt = t;
-      t = tri_t(F[0].z, F[1].z, F[2].z, F[3].z, F[4].z, F[5].z, F[6].z, F[7].z, F[8].z, F[9].z, r);
-      if (t < bt) bt = t;
-      t = tri_t(F[0].w, F[1].w, F[2].w, F[3].w, F[4].w, F[5].w, F[6].w, F[7].w, F[8].w, F[9].w, r);
-      if (t < bt) bt = t;
-    }
-  } else {
-#define FLD(i) __ldg(p + (i) * kLanes + l)
-    for (int l = 0; l < kLanes; ++l) {
-      const float t = tri_t(FLD(0), FLD(1), FLD(2), FLD(3), FLD(4), FLD(5), FLD(6), FLD(7),
-                            FLD(8), FLD(9), r);
-      if (t < bt) bt = t;
-    }
-#undef FLD
-  }
-  return bt;
+// the bisect's and sweep-all's (ray, leaf) sweep: the Cramer test of the
+// traversal kernels for t in [kTMin, kBig]
+template <bool STAGED, bool UNIFORM>
+__device__ __forceinline__ void sweep(bool adm, int blk, const float* p, const float* prim,
+                                      const Ray& r, int lane, bvh::Best& best) {
+  bvh::sweep_round<bvh::kTri, STAGED, UNIFORM>(adm, blk, p, prim, r, kTMin, kBig, lane, best);
 }
 
 // -- P1: ray I/O ------------------------------------------------------------
@@ -314,7 +262,7 @@ probe_walk_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
     int nbuf = 0;
     while (node < m && (MODE != kBuf || nbuf < kChunk)) {
       float near, far;
-      slab(bbo + (size_t)node * 8, r, near, far);
+      bvh::slab<true>(bbo + (size_t)node * 8, r, near, far);
       const int4 lk = __ldg(lko + node);
       bool admit = live && (near <= far) && (far >= kTMin);
       if (MODE == kBt) admit = admit && (near <= val);
@@ -360,21 +308,45 @@ probe_sweep_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                    const float* __restrict__ dy, const float* __restrict__ dz,
                    const float* __restrict__ prim, int n, int n_blocks,
                    float* __restrict__ bt_out, int32_t* __restrict__ swept_out) {
+  // W = 128: two slots, one swept while the next block lands in the other
+  __shared__ __align__(16) float s_ring[W == 1 ? 4 : 2 * kStaged];
+  __shared__ __align__(8) unsigned long long s_bar[2];
   const int i = blockIdx.x * 128 + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i, true);
-  float bt = kBig;
-  int swept = 0;
-  for (int b = 0; b < n_blocks; ++b) {
-    bt = sweep_block<W != 1>(prim + (size_t)b * kTriFloats, r, bt);
-    ++swept;
+  const int lane = threadIdx.x & 31;
+  const bool live = i < n;  // a dead lane stays: the sweep's shuffles need all 32
+  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i, live);
+  bvh::Best best{kBig, 0, 0, 0.f, 0.f};
+  if (W == 1) {
+    for (int b = 0; b < n_blocks; ++b) {
+      const float* p = prim + (size_t)b * kTriFloats;
+      sweep<false, false>(live, b, p, prim, r, lane, best);
+    }
+  } else {
+    if (threadIdx.x < 2) bvh::mbar_init(s_bar + threadIdx.x);
+    bvh::mbar_fence_init();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int b = 0; b < 2 && b < n_blocks; ++b)
+        bvh::stage<bvh::kTri>(s_ring + b * kStaged, prim + (size_t)b * kTriFloats, s_bar + b);
+    }
+    for (int b = 0; b < n_blocks; ++b) {
+      const int slot = b & 1;
+      bvh::mbar_wait(s_bar + slot, (b >> 1) & 1);
+      sweep<true, true>(live, b, s_ring + slot * kStaged, prim, r, lane, best);
+      __syncthreads();  // every warp has read the slot: refill it
+      if (threadIdx.x == 0 && b + 2 < n_blocks)
+        bvh::stage<bvh::kTri>(s_ring + slot * kStaged, prim + (size_t)(b + 2) * kTriFloats,
+                              s_bar + slot);
+    }
   }
-  bt_out[i] = bt;
-  swept_out[i] = swept;
+  if (!live) return;
+  bt_out[i] = best.t;
+  swept_out[i] = n_blocks;
 }
 
 // -- P3: the bisect ---------------------------------------------------------------
 
+// V0-V3: the walk and its buffer, no sweep
 template <int V, int W>
 __global__ void __launch_bounds__(128)
 probe_variant_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
@@ -385,8 +357,7 @@ probe_variant_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                      float* __restrict__ acc_out, float* __restrict__ bt_out,
                      int32_t* __restrict__ ints, float* __restrict__ rec,
                      int32_t* __restrict__ mat_out) {
-  constexpr bool kCount = V >= 1, kStore = V >= 2, kChunked = V >= 3, kSweep = V >= 4,
-                 kAttr = V >= 7;
+  constexpr bool kCount = V >= 1, kStore = V >= 2, kChunked = V >= 3;
   __shared__ float s_sum[3][32];
   __shared__ int s_buf[kChunk];
   const int i = blockIdx.x * 128 + threadIdx.x;
@@ -400,16 +371,15 @@ probe_variant_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
   int* buf = (W == 1) ? buf_own : s_buf;
   const bool writer = is_writer<W>();
 
-  float acc = 0.f, bt = kBig;
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f, a4 = 0.f;  // wins, block, t, t before, slot
-  int steps = 0, leaves = 0, swept = 0, last = -1, node = 0;
-  // W = 128: node, steps, leaves, nbuf, swept and last are the same in every
-  // thread of the block; W = 1: a ray buffers and sweeps the leaves it admits
+  float acc = 0.f;
+  int steps = 0, leaves = 0, last = -1, node = 0;
+  // W = 128: node, steps, leaves, nbuf and last are the same in every thread
+  // of the block; W = 1: a ray buffers the leaves it admits
   while (node < m) {
     int nbuf = 0;
     while (node < m && (!kChunked || nbuf < kChunk)) {
       float near, far;
-      slab(bbo + (size_t)node * 8, r, near, far);
+      bvh::slab<true>(bbo + (size_t)node * 8, r, near, far);
       const int4 lk = __ldg(lko + node);
       const bool admit = live && (near <= far) && (far >= kTMin);
       const bool any = vote<W>(admit);
@@ -425,25 +395,114 @@ probe_variant_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
     if (kStore && nbuf > 0) {
       packet_sync<W>();
       last = buf[min(nbuf, kChunk) - 1];
-      if (kSweep) {
-        for (int j = 0; j < nbuf; ++j) {
-          const int blk = (V == 5) ? (j % n_blocks) : buf[j];
-          if (live) {
-            const float nbt = sweep_block<W != 1>(prim + (size_t)blk * kTriFloats, r, bt);
-            if (kAttr && nbt < bt) {
-              a0 = a0 + 1.f; a1 = (float)blk; a2 = nbt; a3 = bt; a4 = (float)j;
-            }
-            bt = nbt;
-          }
-          ++swept;
-        }
-      }
       packet_sync<W>();  // the buffer is free again
     }
   }
   if (!live) return;
   acc_out[i] = acc;
-  bt_out[i] = bt;
+  bt_out[i] = kBig;
+  ints[i] = steps;
+  ints[(size_t)n + i] = leaves;
+  ints[2 * (size_t)n + i] = 0;
+  ints[3 * (size_t)n + i] = 0;
+  ints[4 * (size_t)n + i] = last;
+}
+
+// V4-V8: V3's walk, and the sweep of each chunk's buffered blocks (V5:
+// blocks 0..nbuf-1 instead) by the traversal kernels' sweep. W = 1: the
+// warp drains its lanes' buffers in rounds, as bvh_traverse.cu does; W =
+// 128: the packet's leaves are staged into a ring of kChunk slots (40 KB,
+// the packet kernel's four tri rings) as they are taken, and each warp
+// sweeps each slot for its rays
+template <int V, int W>
+__global__ void __launch_bounds__(128)
+probe_sweep_variant_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
+                           const float* __restrict__ oz, const float* __restrict__ dx,
+                           const float* __restrict__ dy, const float* __restrict__ dz,
+                           const float* __restrict__ bb, const int32_t* __restrict__ links,
+                           const float* __restrict__ prim, int n, int m, int k_orders,
+                           int n_blocks, float* __restrict__ acc_out,
+                           float* __restrict__ bt_out, int32_t* __restrict__ ints,
+                           float* __restrict__ rec, int32_t* __restrict__ mat_out) {
+  constexpr bool kAttr = V >= 7, kStagedRing = W > 1;
+  __shared__ float s_sum[3][32];
+  __shared__ int s_buf[kChunk];
+  __shared__ __align__(16) float s_ring[kStagedRing ? kChunk * kStaged : 4];
+  __shared__ __align__(8) unsigned long long s_bar[kChunk];
+  const int i = blockIdx.x * 128 + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const bool live = i < n;  // a dead lane stays: the sweep's shuffles need all 32
+  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i, live);
+  const int oct = packet_octant<W>(r, k_orders, s_sum);
+  const float* bbo = bb + (size_t)oct * m * 8;
+  const int4* lko = reinterpret_cast<const int4*>(links) + (size_t)oct * m;
+  int buf_own[kChunk];
+  int* buf = (W == 1) ? buf_own : s_buf;
+  const bool writer = is_writer<W>();
+  if (kStagedRing) {
+    if (threadIdx.x < kChunk) bvh::mbar_init(s_bar + threadIdx.x);
+    bvh::mbar_fence_init();
+    __syncthreads();
+  }
+
+  float acc = 0.f;
+  bvh::Best best{kBig, 0, 0, 0.f, 0.f};
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f, a4 = 0.f;  // wins, block, t, t before, slot
+  int steps = 0, leaves = 0, swept = 0, last = -1, node = 0;
+  unsigned phases = 0;  // W = 128: bit j, the parity of slot j's next phase
+  // W = 128: node, steps, leaves, nbuf, swept, last and phases are the same
+  // in every thread of the block; W = 1: a ray buffers the leaves it admits
+  while (true) {
+    int nbuf = 0;
+    while (node < m && nbuf < kChunk) {
+      float near, far;
+      bvh::slab<true>(bbo + (size_t)node * 8, r, near, far);
+      const int4 lk = __ldg(lko + node);
+      const bool admit = live && (near <= far) && (far >= kTMin);
+      const bool any = vote<W>(admit);
+      if (live) acc = acc + near * kAccScale;
+      if (any && lk.y > 0) {
+        if (writer) {
+          buf[nbuf] = lk.x;
+          if (kStagedRing) {  // the copy starts now; the rest of the walk hides it
+            const int blk = (V == 5) ? nbuf % n_blocks : lk.x;
+            bvh::stage<bvh::kTri>(s_ring + nbuf * kStaged, prim + (size_t)blk * kTriFloats,
+                                  s_bar + nbuf);
+          }
+        }
+        ++nbuf;
+      }
+      node = (any && lk.y <= 0) ? node + 1 : lk.z;
+      ++steps;
+    }
+    leaves += nbuf;
+    // a round per buffer position: W = 1 the warp's longest buffer
+    const int rounds = (W == 1) ? __reduce_max_sync(kFull, nbuf) : nbuf;
+    if (rounds == 0) break;
+    packet_sync<W>();
+    if (nbuf > 0) last = buf[nbuf - 1];
+    for (int j = 0; j < rounds; ++j) {
+      const bool have = j < nbuf;
+      const int blk = (V == 5) ? j % n_blocks : (have ? buf[j] : 0);
+      const bool adm = have && live;
+      const float before = best.t;
+      if (kStagedRing) {
+        bvh::mbar_wait(s_bar + j, (phases >> j) & 1u);
+        phases ^= 1u << j;
+        sweep<true, true>(adm, blk, s_ring + j * kStaged, prim, r, lane, best);
+      } else {
+        sweep<false, false>(adm, blk, prim + (size_t)blk * kTriFloats, prim, r, lane, best);
+      }
+      if (kAttr && adm && best.t < before) {
+        a0 = a0 + 1.f; a1 = (float)blk; a2 = best.t; a3 = before; a4 = (float)j;
+      }
+      swept += have;
+    }
+    packet_sync<W>();  // the buffer and the ring are free again
+  }
+  if (!live) return;
+  acc_out[i] = acc;
+  bt_out[i] = best.t;
   ints[i] = steps;
   ints[(size_t)n + i] = leaves;
   ints[2 * (size_t)n + i] = swept;
@@ -452,7 +511,7 @@ probe_variant_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
   if (V == 7) rec[i] = ((a1 + a2) + a3) + a4;  // keeps the carries alive
   if (V == 8) {
     // the packet kernel's output record: t, four attributes, an int32
-    rec[i] = bt;
+    rec[i] = best.t;
     rec[(size_t)n + i] = a1;
     rec[2 * (size_t)n + i] = a2;
     rec[3 * (size_t)n + i] = a3;
@@ -504,12 +563,23 @@ void launch_walk_mode(int mode, const void* const* f, const void* bb, const void
   }
 }
 
+// the bisect's kernel of variant V (only that one is instantiated)
+template <int V, int W>
+auto variant_kernel() {
+  if constexpr (V >= 4) {
+    return probe_sweep_variant_kernel<V, W>;
+  } else {
+    return probe_variant_kernel<V, W>;
+  }
+}
+
 template <int V, int W>
 void launch_variant(const void* const* f, const void* bb, const void* links, const void* prim,
                     int n, int m, int k_orders, int n_blocks, int reps, void* acc, void* bt,
                     void* ints, void* rec, void* mat, cudaStream_t s) {
+  const auto kernel = variant_kernel<V, W>();
   for (int rep = 0; rep < reps; ++rep)
-    probe_variant_kernel<V, W><<<(n + 127) / 128, 128, 0, s>>>(
+    kernel<<<(n + 127) / 128, 128, 0, s>>>(
         FP(f[0]), FP(f[1]), FP(f[2]), FP(f[3]), FP(f[4]), FP(f[5]), FP(bb),
         static_cast<const int32_t*>(links), FP(prim), n, m, k_orders, n_blocks,
         static_cast<float*>(acc), static_cast<float*>(bt), I32(ints), static_cast<float*>(rec),

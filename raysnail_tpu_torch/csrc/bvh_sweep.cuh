@@ -39,6 +39,15 @@ constexpr int kNoLane = 0x7fffffff;
 
 enum Kind { kTri = 0, kBox = 1, kSphere = 2, kTriMxu = 3 };
 
+// The forms of the two traversal kernels. kFullForm is the traversal that
+// renders. The other two are probes, the counterparts of the TPU kernel's
+// switches (bvh_pallas.py:78-79): kNoSweep (`_NOSWEEP`, :231) runs the
+// walk, the root cap, the deferral and the drain rounds with their fresh
+// re-test, and calls no sweep, so best t stays BIG; kNoAttr (`_NOATTR`,
+// :323) runs everything but the epilogue's attribute reads and blend, and
+// writes t. Both write counters where the full form writes its record.
+enum Form { kFullForm = 0, kNoSweep = 1, kNoAttr = 2 };
+
 // floats of one block in global memory and of its staged sweep rows, and the
 // slots of a warp's ring in the packet kernel's `stream` mode (four rings a
 // block: tri 40 KB, 5 blocks an SM; tri_mxu 84 KB, 2 blocks an SM)
@@ -352,7 +361,8 @@ __device__ __forceinline__ void sweep_round(bool adm, int blk, const float* p,
 }
 
 // the winner's shading attributes and the ray's six outputs
-// (bvh_pallas.py:358-401); a miss is t = kBig with zero attributes
+// (bvh_pallas.py:358-401); a miss is t = kBig with zero attributes. The
+// kernels' probe forms write what `write_form` writes instead.
 template <int KIND>
 __device__ __forceinline__ void write_hit(const float* __restrict__ prim, const RayIn& r,
                                           const Best& best, int i, int n,
@@ -410,6 +420,22 @@ __device__ __forceinline__ void write_hit(const float* __restrict__ prim, const 
   out[3 * (size_t)n + i] = a2;
   out[4 * (size_t)n + i] = a3;
   mat_out[i] = (int32_t)rintf(mat);
+}
+
+// a probe form's outputs (Form) for ray i of n: its t, then rows of
+// `counts`: kNoAttr the (ray, leaf) sweeps the ray ran; kNoSweep the sweeps
+// its drain admitted and skipped, its walk's node steps (the packet
+// kernel: its warp's) and its warp's drain rounds
+template <int FORM>
+__device__ __forceinline__ void write_form(float t, int sweeps, int steps, int rounds, int i,
+                                           int n, float* __restrict__ out,
+                                           int32_t* __restrict__ counts) {
+  out[i] = t;
+  counts[i] = sweeps;
+  if (FORM == kNoSweep) {
+    counts[(size_t)n + i] = steps;
+    counts[2 * (size_t)n + i] = rounds;
+  }
 }
 
 }  // namespace bvh

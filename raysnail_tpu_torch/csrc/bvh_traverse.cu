@@ -65,8 +65,17 @@
 // sum and quotient rounds as the plain PyTorch version's elementwise
 // operations round it, so t and the winner agree bit for bit with it.
 //
-// The C entry point launches on the caller's stream, does not synchronise,
-// allocates nothing, and returns cudaGetLastError().
+// Probe forms (bvh_sweep.cuh `Form`), the counterparts of the TPU kernel's
+// switches _NOSWEEP and _NOATTR (bvh_pallas.py:78-79): kNoSweep runs the
+// walk, the cap, the deferral and the drain rounds with their fresh
+// re-test, sweeps nothing, and writes per ray t (BIG), the leaves its
+// drain admitted, its node steps and its warp's drain rounds; kNoAttr runs
+// all but the epilogue's attribute reads and blend, and writes t and the
+// ray's (ray, leaf) sweeps. They measure where the full form's time goes;
+// no render path launches them (bvh_traverse_form_launch).
+//
+// The C entry points launch on the caller's stream, do not synchronise,
+// allocate nothing, and return cudaGetLastError().
 
 #include "bvh_sweep.cuh"
 
@@ -76,7 +85,7 @@ using namespace bvh;
 
 constexpr int kThreads = 128;
 
-template <int KIND>
+template <int KIND, int FORM>
 __global__ void __launch_bounds__(kThreads)
 bvh_traverse_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                     const float* __restrict__ oz, const float* __restrict__ dx,
@@ -84,7 +93,8 @@ bvh_traverse_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                     const float* __restrict__ t_cap, const float* __restrict__ bb,
                     const int32_t* __restrict__ links, const float* __restrict__ prim,
                     int n, int m, int k_orders, float t_min, float t_max,
-                    float* __restrict__ out, int32_t* __restrict__ mat_out) {
+                    float* __restrict__ out, int32_t* __restrict__ mat_out,
+                    int32_t* __restrict__ counts) {
   // the deferred leaves: a thread reads and writes its own column only
   __shared__ int s_node[kDepth][kThreads], s_blk[kDepth][kThreads];
 
@@ -107,12 +117,14 @@ bvh_traverse_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
   const float cap = root_cap(bbo, r, cap_t, t_min, t_max);
 
   Best best{kBig, 0, 0, 0.f, 0.f};
+  int steps = 0, sweeps = 0, drained = 0;  // the probe forms' counters
   int node = (cap >= t_min) ? 0 : m;
   while (true) {
     // walk: defer admitted leaves until the buffer is full or the walk ends
     int nbuf = 0;
     while (node < m && nbuf < kDepth) {
       const int4 lk = __ldg(lko + node);
+      if (FORM == kNoSweep) ++steps;
       const bool admit = admits<true>(bbo + (size_t)node * 8, r, t_min, fminf(best.t, cap));
       if (admit && lk.y > 0) {
         s_node[nbuf][tid] = node;
@@ -126,6 +138,7 @@ bvh_traverse_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
     // drain: no lane holds a leaf only when every lane's walk has ended
     const int rounds = __reduce_max_sync(kFull, nbuf);
     if (rounds == 0) break;
+    if (FORM == kNoSweep) drained += rounds;
     for (int j = 0; j < rounds; ++j) {
       const bool have = j < nbuf;
       const int nd = have ? s_node[j][tid] : 0;
@@ -134,10 +147,44 @@ bvh_traverse_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
       const bool adm = have && admits<true>(bbo + (size_t)nd * 8, r, t_min,
                                             fminf(best.t, cap));
       const float* p = prim + (size_t)blk * Shape<KIND>::block;
-      sweep_round<KIND, false, false>(adm, blk, p, prim, r, t_min, t_max, lane, best);
+      if (FORM != kNoSweep)
+        sweep_round<KIND, false, false>(adm, blk, p, prim, r, t_min, t_max, lane, best);
+      if (FORM != kFullForm) sweeps += adm;
     }
   }
-  if (live) write_hit<KIND>(prim, r, best, i, n, out, mat_out);
+  if (live) {
+    if (FORM == kFullForm) {
+      write_hit<KIND>(prim, r, best, i, n, out, mat_out);
+    } else {
+      write_form<FORM>(best.t, sweeps, steps, drained, i, n, out, counts);
+    }
+  }
+}
+
+template <int FORM>
+int launch(int kind, const void* ox, const void* oy, const void* oz, const void* dx,
+           const void* dy, const void* dz, const void* t_cap, const void* bb,
+           const void* links, const void* prim, int n, int m, int k_orders, float t_min,
+           float t_max, void* out, void* mat_out, void* counts, cudaStream_t s) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const int blocks = (n + kThreads - 1) / kThreads;
+#define LAUNCH(K)                                                              \
+  bvh_traverse_kernel<K, FORM><<<blocks, kThreads, 0, s>>>(                   \
+      static_cast<const float*>(ox), static_cast<const float*>(oy),           \
+      static_cast<const float*>(oz), static_cast<const float*>(dx),           \
+      static_cast<const float*>(dy), static_cast<const float*>(dz),           \
+      static_cast<const float*>(t_cap), static_cast<const float*>(bb),        \
+      static_cast<const int32_t*>(links), static_cast<const float*>(prim), n, \
+      m, k_orders, t_min, t_max, static_cast<float*>(out),                    \
+      static_cast<int32_t*>(mat_out), static_cast<int32_t*>(counts))
+  switch (kind) {
+    case kTri: LAUNCH(kTri); break;
+    case kBox: LAUNCH(kBox); break;
+    case kSphere: LAUNCH(kSphere); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef LAUNCH
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -148,24 +195,27 @@ extern "C" int bvh_traverse_launch(int kind, const void* ox, const void* oy,
                                    const void* links, const void* prim, int n, int m,
                                    int k_orders, float t_min, float t_max, void* out,
                                    void* mat_out, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const int blocks = (n + kThreads - 1) / kThreads;
+  return launch<kFullForm>(kind, ox, oy, oz, dx, dy, dz, t_cap, bb, links, prim, n, m, k_orders,
+                       t_min, t_max, out, mat_out, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// A probe form (kNoSweep 1, kNoAttr 2): t (n,) f32; counts (3, n) i32 for
+// kNoSweep (sweeps its drain admitted, node steps, its warp's drain
+// rounds), (n,) for kNoAttr (sweeps)
+extern "C" int bvh_traverse_form_launch(int form, int kind, const void* ox, const void* oy,
+                                        const void* oz, const void* dx, const void* dy,
+                                        const void* dz, const void* t_cap, const void* bb,
+                                        const void* links, const void* prim, int n, int m,
+                                        int k_orders, float t_min, float t_max, void* t_out,
+                                        void* counts, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-#define LAUNCH(K)                                                              \
-  bvh_traverse_kernel<K><<<blocks, kThreads, 0, s>>>(                         \
-      static_cast<const float*>(ox), static_cast<const float*>(oy),           \
-      static_cast<const float*>(oz), static_cast<const float*>(dx),           \
-      static_cast<const float*>(dy), static_cast<const float*>(dz),           \
-      static_cast<const float*>(t_cap), static_cast<const float*>(bb),        \
-      static_cast<const int32_t*>(links), static_cast<const float*>(prim), n, \
-      m, k_orders, t_min, t_max, static_cast<float*>(out),                    \
-      static_cast<int32_t*>(mat_out))
-  switch (kind) {
-    case kTri: LAUNCH(kTri); break;
-    case kBox: LAUNCH(kBox); break;
-    case kSphere: LAUNCH(kSphere); break;
+  switch (form) {
+    case kNoSweep:
+      return launch<kNoSweep>(kind, ox, oy, oz, dx, dy, dz, t_cap, bb, links, prim, n, m,
+                              k_orders, t_min, t_max, t_out, nullptr, counts, s);
+    case kNoAttr:
+      return launch<kNoAttr>(kind, ox, oy, oz, dx, dy, dz, t_cap, bb, links, prim, n, m,
+                             k_orders, t_min, t_max, t_out, nullptr, counts, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef LAUNCH
-  return static_cast<int>(cudaGetLastError());
 }

@@ -26,8 +26,19 @@ from a kernel to a plain version.
                                ("w1024"), 128 with the best-t cap compare
                                ("cap"), and that with the leaf-id buffer
                                and the loop in chunks of 8 leaves ("buf")
-  probe_walk_variant(v, shape) the bisect V0-V8 (V3 is the TPU kernel's
-                               _NOSWEEP switch, V4 its _NOATTR)
+  probe_walk_variant(v, shape) the bisect V0-V8 of a walk that admits by
+                               the slab alone (no best-t pruning, no cap):
+                               V3 walks and buffers, V4 sweeps every leaf
+                               a ray's slab admits. The TPU kernel's
+                               switches _NOSWEEP and _NOATTR are the
+                               traversal kernels' own probe forms
+                               (`ops.bvh_traverse.bvh_traverse_form`)
+
+The sweeps (probe_sweep, V4-V8) are the traversal kernels' own
+(`csrc/bvh_sweep.cuh`): a warp sweeps each (ray, leaf) primitive-parallel,
+one ray after another; shape "ray" reads the leaf from global memory as
+`csrc/bvh_traverse.cu` does, "packet" stages it in shared memory by the
+bulk copy engine as `csrc/bvh_packet.cu`'s `stream` mode does.
 
 A packet of W rays walks one node order, the octant of the sign of its
 rays' summed directions (a ray alone: its own octant), and enters a node

@@ -51,12 +51,24 @@ in a step as one batched (rays, 128) test.
 route: "tri", "box", "sphere" for the per-ray kernel, and
 "packet/<kind>[+stream][+two_level]" for the packet kernel, so a run can
 show which kernels and modes its traversals went through.
+
+`bvh_traverse_form` reaches the two kernels' probe forms (`Form` in
+`csrc/bvh_sweep.cuh`), the counterparts of the TPU kernel's switches
+`_NOSWEEP` and `_NOATTR` (bvh_pallas.py:78-79), for the kinds "tri", "box"
+and "sphere" with `stream` and `two_level` off. "nosweep" runs the walk,
+the cap, the deferral and the drain rounds with their fresh re-test and
+sweeps nothing (every ray misses); "noattr" runs all but the epilogue's
+attribute reads and blend. They measure where the full kernel's time goes
+(`raysnail_tpu_torch.probes`); no render path calls them.
+`bvh_traverse_form_plain` is their plain version, and
+`bvh_traverse_form.launches` their count, keyed "<form>/<launch key>".
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -87,6 +99,16 @@ _PER_RAY_KINDS = ("tri", "box", "sphere")
 STAGED_FLOATS = {"tri": 10 * LANES, "box": 7 * LANES, "sphere": 5 * LANES,
                  "tri_mxu": 10 * 512 + LANES}
 ATTR_WORDS = {"tri": 10, "box": 7, "sphere": 5, "tri_mxu": 10}
+FORMS = {"nosweep": 1, "noattr": 2}  # the probe forms (csrc/bvh_sweep.cuh `Form`)
+WARP = 32  # the rays that walk together in the packet kernel, and drain together in both
+
+
+class FormOut(NamedTuple):
+    t: torch.Tensor                 # (N,) f32: BIG on every ray (nosweep), the closest hit (noattr)
+    sweeps: torch.Tensor            # (N,) i32 (ray, leaf) sweeps: run (noattr), or admitted at the
+                                    # drain and skipped (nosweep)
+    steps: Optional[torch.Tensor]   # nosweep: (N,) i32 node steps of the ray's walk (packet: its warp's)
+    rounds: Optional[torch.Tensor]  # nosweep: (N,) i32 drain rounds of the ray's warp
 
 _libs = {}
 
@@ -113,12 +135,17 @@ def _load(name: str):
             lib = ctypes.CDLL(build())
             fn = lib.bvh_traverse_launch
             fn.argtypes = [c_int] + [ptr] * 10 + [c_int] * 3 + [c_float, c_float, ptr, ptr, ptr]
+            form = lib.bvh_traverse_form_launch
         else:
             lib = ctypes.CDLL(build_packet())
             fn = lib.bvh_packet_launch
             fn.argtypes = ([c_int] + [ptr] * 12 + [c_int] * 5
                            + [c_float, c_float, ptr, ptr, ptr])
-        fn.restype = c_int
+            form = lib.bvh_packet_form_launch
+        # both form entry points: (form, kind, rays, t_cap, tree, prim, n, m,
+        # k_orders, t_min, t_max, t_out, counts, stream)
+        form.argtypes = [c_int] * 2 + [ptr] * 10 + [c_int] * 3 + [c_float, c_float, ptr, ptr, ptr]
+        fn.restype = form.restype = c_int
         _libs[name] = lib
     return _libs[name]
 
@@ -287,6 +314,28 @@ def cut_counts(crange, m: int):
     return (crange[:, :, 0] < m).sum(dim=1)
 
 
+def node_orders(dir_xyz, k_ord: int, packet: bool):
+    """Each ray's node order: its own direction octant (the per-ray kernel)
+    or its packet's (the packet kernel); 0 on a tree of one order."""
+    dx, dy, dz = dir_xyz
+    if k_ord != 8:
+        return torch.zeros(dx.shape[0], dtype=torch.long, device=dx.device)
+    if packet:
+        return packet_octant(dx, dy, dz)
+    return (dx < 0).long() * 4 + (dy < 0).long() * 2 + (dz < 0).long()
+
+
+def admission_cap(root_bb, o, inv, t_cap, t_min, t_max):
+    """The per-ray admission cap from the root's slab test
+    (bvh_pallas.py:214-224): -BIG, which admits nothing, where the ray
+    cannot hit. root_bb (n, 8): each ray's root bounds."""
+    near0, far0 = slab(root_bb, o, inv)
+    cap_in = torch.minimum(t_cap, torch.full_like(t_cap, t_max))
+    can_hit = (t_cap > 0.0) & (near0 <= far0) & (far0 >= t_min) & (near0 <= cap_in)
+    return torch.where(can_hit, torch.minimum(far0, cap_in) * 1.0001 + 1e-4,
+                       torch.full_like(far0, -BIG))
+
+
 def bvh_traverse_plain(origin_xyz, dir_xyz, t_cap, pk_bb, pk_links, pk_prim,
                        t_min, t_max, kind: str = "tri", packet: bool = False,
                        stream: bool = False, two_level: bool = False,
@@ -305,28 +354,27 @@ def bvh_traverse_plain(origin_xyz, dir_xyz, t_cap, pk_bb, pk_links, pk_prim,
     `stats`, when given, gains what this call's data needed: "node_tests"
     and "sweeps" (per ray), "nodes" and "leaves" (distinct ones touched)."""
     del stream
+    return _lockstep(origin_xyz, dir_xyz, t_cap, pk_bb, pk_links, pk_prim, t_min, t_max,
+                     kind, packet, two_level, cbb, crange, stats)
+
+
+def _lockstep(origin_xyz, dir_xyz, t_cap, pk_bb, pk_links, pk_prim, t_min, t_max, kind,
+              packet, two_level, cbb, crange, stats, ray_sweeps=None):
+    """`bvh_traverse_plain`'s walk. ray_sweeps, an (N,) int tensor, gains
+    each ray's (ray, leaf) sweeps: those of a walk with an always fresh best
+    t, which are the leaves the kernels' drain sweeps."""
     ox, oy, oz = origin_xyz
     dx, dy, dz = dir_xyz
     n = ox.shape[0]
     dev, f32 = ox.device, torch.float32
     k_ord, m = pk_bb.shape[0], pk_bb.shape[1]
-    if k_ord != 8:
-        octant = torch.zeros(n, dtype=torch.long, device=dev)
-    elif packet:
-        octant = packet_octant(dx, dy, dz)
-    else:
-        octant = ((dx < 0).long() * 4 + (dy < 0).long() * 2 + (dz < 0).long())
+    octant = node_orders(dir_xyz, k_ord, packet)
     base = octant * m
     inv = [safe_inv(c) for c in (dx, dy, dz)]
     o_all, d_all = (ox, oy, oz), (dx, dy, dz)
     bb = pk_bb.reshape(-1, 8)
     lk = pk_links.reshape(-1, 4).long()
-
-    near0, far0 = slab(bb[base], o_all, inv)
-    cap_in = torch.minimum(t_cap, torch.full_like(t_cap, t_max))
-    can_hit = (t_cap > 0.0) & (near0 <= far0) & (far0 >= t_min) & (near0 <= cap_in)
-    cap = torch.where(can_hit, torch.minimum(far0, cap_in) * 1.0001 + 1e-4,
-                      torch.full_like(far0, -BIG))
+    cap = admission_cap(bb[base], o_all, inv, t_cap, t_min, t_max)
 
     best_t = torch.full((n,), BIG, dtype=f32, device=dev)
     best_blk = torch.zeros(n, dtype=torch.long, device=dev)
@@ -380,6 +428,8 @@ def bvh_traverse_plain(origin_xyz, dir_xyz, t_cap, pk_bb, pk_links, pk_prim,
                 sweeps += int(sw.numel())
                 seen_node[row] = True
                 seen_leaf[links[sw, 0]] = True
+            if ray_sweeps is not None:
+                ray_sweeps[walk[sw]] += 1
             if sw.numel():
                 rays, blocks = walk[sw], links[sw, 0]
                 col = lambda v: [c[rays][:, None] for c in v]
@@ -425,6 +475,27 @@ def _check(name, a, shape, dtype, device):
                          f"{a.device}{'' if a.is_contiguous() else ' (strided)'}")
 
 
+def _check_call(origin_xyz, dir_xyz, t_cap, pk_bb, pk_links, pk_prim, kind):
+    """Raise on what the kernels do not take -> (device, N, K, M)."""
+    if kind not in _KIND_ID:
+        raise ValueError(f"bvh_traverse: unknown kind {kind!r}")
+    device = origin_xyz[0].device
+    n = origin_xyz[0].shape[0]
+    k_ord, m = pk_bb.shape[0], pk_bb.shape[1]
+    for i, a in enumerate(origin_xyz):
+        _check(f"origin[{i}]", a, (n,), torch.float32, device)
+    for i, a in enumerate(dir_xyz):
+        _check(f"direction[{i}]", a, (n,), torch.float32, device)
+    _check("t_cap", t_cap, (n,), torch.float32, device)
+    if k_ord not in (1, 8):
+        raise ValueError(f"bvh_traverse: pk_bb holds {k_ord} node orders, not 1 or 8")
+    _check("pk_bb", pk_bb, (k_ord, m, 8), torch.float32, device)
+    _check("pk_links", pk_links, (k_ord, m, 4), torch.int32, device)
+    _check("pk_prim", pk_prim, (pk_prim.shape[0], NF[kind], WIDTH[kind]), torch.float32,
+           device)
+    return device, n, k_ord, m
+
+
 def launch_key(kind: str, packet: bool, stream: bool = False, two_level: bool = False) -> str:
     """The key of `bvh_traverse.launches` for one route."""
     if not packet:
@@ -455,22 +526,8 @@ def bvh_traverse(origin_xyz, dir_xyz, t_cap, pk_bb, pk_links, pk_prim, t_min, t_
     wrapper; True without both arrays raises. packet: None = the packet
     kernel when kind, stream or two_level needs it; False with such a call
     raises."""
-    if kind not in _KIND_ID:
-        raise ValueError(f"bvh_traverse: unknown kind {kind!r}")
-    device = origin_xyz[0].device
-    n = origin_xyz[0].shape[0]
-    k_ord, m = pk_bb.shape[0], pk_bb.shape[1]
-    for i, a in enumerate(origin_xyz):
-        _check(f"origin[{i}]", a, (n,), torch.float32, device)
-    for i, a in enumerate(dir_xyz):
-        _check(f"direction[{i}]", a, (n,), torch.float32, device)
-    _check("t_cap", t_cap, (n,), torch.float32, device)
-    if k_ord not in (1, 8):
-        raise ValueError(f"bvh_traverse: pk_bb holds {k_ord} node orders, not 1 or 8")
-    _check("pk_bb", pk_bb, (k_ord, m, 8), torch.float32, device)
-    _check("pk_links", pk_links, (k_ord, m, 4), torch.int32, device)
-    _check("pk_prim", pk_prim, (pk_prim.shape[0], NF[kind], WIDTH[kind]), torch.float32,
-           device)
+    device, n, k_ord, m = _check_call(origin_xyz, dir_xyz, t_cap, pk_bb, pk_links, pk_prim,
+                                      kind)
     if stream is None:
         stream = pk_prim.numel() * 4 > stream_bytes()
     has_cut = cbb is not None and crange is not None
@@ -527,3 +584,135 @@ def launch_keys() -> list:
 
 
 bvh_traverse.launches = {key: 0 for key in launch_keys()}
+
+
+# -- the probe forms -------------------------------------------------------------
+
+def _nosweep_walk(origin_xyz, dir_xyz, t_cap, pk_bb, pk_links, t_min, t_max, packet,
+                  stats=None) -> FormOut:
+    """The "nosweep" form in lockstep over groups of rays that walk
+    together: a ray alone in its own order (the per-ray kernel), or a warp
+    of WARP rays in its packet's order (the packet kernel), which enters a
+    node when any of its rays admits it. Admission by the slab test against
+    the ray's cap with best t at BIG; every leaf a group enters is deferred,
+    and a ray's drain admits it where the ray itself admits it."""
+    n = origin_xyz[0].shape[0]
+    dev = origin_xyz[0].device
+    k_ord, m = pk_bb.shape[0], pk_bb.shape[1]
+    width = WARP if packet else 1
+    inv = [safe_inv(c) for c in dir_xyz]
+    bb = pk_bb.reshape(-1, 8)
+    lk = pk_links.reshape(-1, 4).long()
+    base = node_orders(dir_xyz, k_ord, packet) * m
+    cap = admission_cap(bb[base], origin_xyz, inv, t_cap, t_min, t_max)
+    pad = (-n) % width
+    group = lambda x, fill: torch.nn.functional.pad(x, (0, pad), value=fill).reshape(-1, width)
+    o = [group(c, 0.0) for c in origin_xyz]
+    iv = [group(c, 1.0) for c in inv]
+    limit = group(torch.minimum(cap, torch.full_like(cap, BIG)), -BIG)  # min(best t, cap)
+    gbase = group(base, 0)[:, 0]  # a group's rays share one order
+    n_grp = limit.shape[0]
+    count = lambda *shape: torch.zeros(shape, dtype=torch.long, device=dev)
+    node, steps, deferred, sweeps = count(n_grp), count(n_grp), count(n_grp), count(n_grp, width)
+    seen = torch.zeros(bb.shape[0], dtype=torch.bool, device=dev)
+    act = torch.nonzero((group(cap, -BIG) >= t_min).any(dim=1))[:, 0]
+    if m == 0:
+        act = act[:0]
+    while act.numel():
+        row = gbase[act] + node[act]
+        near, far = (x.view(-1, width) for x in slab(bb[row].repeat_interleave(width, 0),
+                                                      [c[act].reshape(-1) for c in o],
+                                                      [c[act].reshape(-1) for c in iv]))
+        admit = (near <= far) & (far >= t_min) & (near <= limit[act])
+        vote = admit.any(dim=1)
+        links = lk[row]
+        leaf = links[:, 1] > 0
+        take = vote & leaf
+        deferred[act] += take
+        sweeps[act] += admit & take[:, None]
+        steps[act] += 1
+        seen[row] = True
+        node[act] = torch.where(vote & ~leaf, node[act] + 1, links[:, 2])
+        act = act[node[act] < m]
+    per_ray = lambda x: x.expand(-1, width).reshape(-1)[:n].to(torch.int32)
+    sweeps_r = sweeps.reshape(-1)[:n].to(torch.int32)
+    if packet:
+        rounds = per_ray(deferred[:, None])
+    else:  # a round per buffer position, over the warp's longest buffer
+        warps = torch.nn.functional.pad(sweeps_r, (0, (-n) % WARP)).reshape(-1, WARP)
+        rounds = warps.amax(dim=1).repeat_interleave(WARP)[:n]
+    steps_r = per_ray(steps[:, None])
+    if stats is not None:
+        for key, val in (("node_tests", int(steps_r.sum())), ("sweeps", 0),
+                         ("nodes", int(seen.sum())), ("leaves", 0)):
+            stats[key] = stats.get(key, 0) + val
+    return FormOut(torch.full((n,), BIG, dtype=torch.float32, device=dev), sweeps_r, steps_r,
+                   rounds)
+
+
+def bvh_traverse_form_plain(form: str, origin_xyz, dir_xyz, t_cap, pk_bb, pk_links, pk_prim,
+                            t_min, t_max, kind: str = "tri", packet: bool = False,
+                            stats: dict | None = None) -> FormOut:
+    """Plain PyTorch version of `bvh_traverse_form`. "nosweep": the walk
+    with slab-and-cap admission and best t at BIG, with its counters;
+    "noattr": `bvh_traverse_plain`'s t and the leaves that a walk with an
+    always fresh best t sweeps, which are the ones the kernels' deferred
+    drain sweeps (csrc/bvh_traverse.cu). `stats` as for
+    `bvh_traverse_plain` (nosweep: no sweep, and the nodes its walk
+    touched)."""
+    if form == "nosweep":
+        return _nosweep_walk(origin_xyz, dir_xyz, t_cap, pk_bb, pk_links, t_min, t_max, packet,
+                             stats)
+    ray_sweeps = torch.zeros(origin_xyz[0].shape[0], dtype=torch.int32,
+                             device=origin_xyz[0].device)
+    t = _lockstep(origin_xyz, dir_xyz, t_cap, pk_bb, pk_links, pk_prim, t_min, t_max, kind,
+                  packet, False, None, None, stats, ray_sweeps)[0]
+    return FormOut(t, ray_sweeps, None, None)
+
+
+def form_key(form: str, kind: str, packet: bool) -> str:
+    """The key of `bvh_traverse_form.launches` for one form and route."""
+    return f"{form}/{launch_key(kind, packet)}"
+
+
+def bvh_traverse_form(form: str, origin_xyz, dir_xyz, t_cap, pk_bb, pk_links, pk_prim,
+                      t_min, t_max, kind: str = "tri", packet: bool = False) -> FormOut:
+    """A probe form of the traversal, "nosweep" or "noattr" (see the module
+    docstring), through the per-ray kernel or (packet=True) the packet
+    kernel with `stream` and `two_level` off; the arguments as for
+    `bvh_traverse`, kinds "tri", "box" and "sphere". On CUDA tensors it
+    launches the kernel's form or raises; on CPU tensors it runs
+    `bvh_traverse_form_plain`."""
+    if form not in FORMS:
+        raise ValueError(f"bvh_traverse_form: form must be one of {tuple(FORMS)}, got {form!r}")
+    if kind not in _PER_RAY_KINDS:
+        raise ValueError(f"bvh_traverse_form: no probe form of kind {kind!r}")
+    device, n, k_ord, m = _check_call(origin_xyz, dir_xyz, t_cap, pk_bb, pk_links, pk_prim,
+                                      kind)
+    if device.type == "cpu":
+        return bvh_traverse_form_plain(form, origin_xyz, dir_xyz, t_cap, pk_bb, pk_links,
+                                       pk_prim, t_min, t_max, kind, packet)
+    if device.type != "cuda":
+        raise ValueError(f"bvh_traverse_form: unsupported device {device}")
+    if any(a.data_ptr() % 16 for a in (pk_bb, pk_links, pk_prim)):
+        raise ValueError("bvh_traverse_form: the packed arrays must be 16-byte aligned")
+    t = torch.empty(n, dtype=torch.float32, device=device)
+    counts = torch.empty((3 if form == "nosweep" else 1, n), dtype=torch.int32, device=device)
+    ptrs = [a.data_ptr() for a in (*origin_xyz, *dir_xyz, t_cap, pk_bb, pk_links, pk_prim)]
+    with torch.cuda.device(device):
+        cu_stream = torch.cuda.current_stream(device).cuda_stream
+        lib = _load("bvh_packet" if packet else "bvh_traverse")
+        launch = lib.bvh_packet_form_launch if packet else lib.bvh_traverse_form_launch
+        err = launch(FORMS[form], _KIND_ID[kind], *ptrs, n, m, k_ord, float(t_min),
+                     float(t_max), t.data_ptr(), counts.data_ptr(), cu_stream)
+    key = form_key(form, kind, packet)
+    if err != 0:
+        raise RuntimeError(f"bvh_traverse_form ({key}) kernel launch failed: cudaError {err}")
+    bvh_traverse_form.launches[key] += 1
+    if form == "nosweep":
+        return FormOut(t, counts[0], counts[1], counts[2])
+    return FormOut(t, counts[0], None, None)
+
+
+bvh_traverse_form.launches = {form_key(f, k, p): 0 for f in FORMS for p in (False, True)
+                              for k in _PER_RAY_KINDS}

@@ -11,7 +11,9 @@ every product and sum as their plain versions' separate elementwise kernels
 do: the sphere sweep's t bit-equal and idx equal; the BVH traversal's t and
 every attribute bit-equal, so the same winner on every ray, ties included.
 That holds for both traversal kernels, and for the packet kernel in every
-kind (tri, tri_mxu, box, sphere), with `stream` and `two_level` on and off;
+kind (tri, tri_mxu, box, sphere), with `stream` and `two_level` on and off,
+and for both kernels' probe forms (no sweep, no attributes: t and every
+counter);
 and for the Mandelbulb march: t, valid, normal, u, v and the step and
 iteration counts bit-equal; and for the rows' select: K7 equal to
 index_select, K7b bit-equal to its plain version and to itself on a second
@@ -290,6 +292,36 @@ def test_kernels_match_plain_on_awkward_warps(cuda_device, route, shape):
         assert stats["sweeps"] >= 1 and int((out[0] < 1e30).sum()) <= 8
     if shape == "shuffled":
         assert int((out[0] < 1e30).sum()) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["case", "n33", "dead-warp", "one-fills"])
+@pytest.mark.parametrize("packet", [False, True], ids=["per-ray", "packet"])
+@pytest.mark.parametrize("kind", ["tri", "box", "sphere"])
+@pytest.mark.parametrize("form", ["nosweep", "noattr"])
+def test_traversal_forms_match_plain(cuda_device, form, kind, packet, shape):
+    """The traversal kernels' probe forms (the TPU kernel's _NOSWEEP and
+    _NOATTR) bit for bit their plain versions in t and every counter; with
+    no attributes t is the full kernel's, with no sweep every ray misses.
+    The launch count moves by one."""
+    *args, cbb, crange = cached_case(kind, cuda_device)
+    rays = tuple(args[:3]) if shape == "case" else shaped_rays(shape, args, cuda_device)
+    key = bt.form_key(form, kind, packet)
+    before = bt.bvh_traverse_form.launches[key]
+    out = bt.bvh_traverse_form(form, *rays, *args[3:], TMIN, TMAX, kind=kind, packet=packet)
+    assert bt.bvh_traverse_form.launches[key] == before + 1
+    ref = bt.bvh_traverse_form_plain(form, *rays, *args[3:], TMIN, TMAX, kind=kind,
+                                     packet=packet)
+    full = bt.bvh_traverse(*rays, *args[3:], TMIN, TMAX, kind=kind, packet=packet,
+                           stream=False, two_level=False)
+    torch.cuda.synchronize()
+    for name, a, b in zip(bt.FormOut._fields, out, ref):
+        assert (a is None) == (b is None), name
+        assert a is None or torch.equal(a, b), name
+    if form == "noattr":
+        assert torch.equal(out.t, full[0])
+    else:
+        assert bool((out.t == 1e30).all()) and int(out.sweeps.sum()) > 0
 
 
 @pytest.mark.cuda
