@@ -32,6 +32,7 @@ from raysnail_tpu_torch.config import RenderConfig
 from raysnail_tpu_torch.diff.params import (SceneParams, extract_params, from_leaves,
                                             inject_params, leaves)
 from raysnail_tpu_torch.prelude.vec import Vec3
+from raysnail_tpu_torch.utils.profiling import span
 
 # rays (cells x pixels) of the one-shot step: above it the step takes one
 # backward pass per cell
@@ -125,7 +126,11 @@ def make_train_step(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig, ta
     with the gradient on and backpropagated against the fixed cotangent
     dL/d(mean image) / S, the cells' gradients accumulating in the leaves.
     With cfg.remat_bounces the backward memory is one cell's bounce
-    carries."""
+    carries.
+
+    Under a running profiler a step is a `train.step` span, holding the
+    two-pass scheme's `train.pass1` and each cell's `train.cell_forward`
+    and `train.cell_backward`."""
     if optimizer is None:
         optimizer = adam(1e-2)
     params0 = extract_params(scene.arrays)
@@ -158,35 +163,41 @@ def make_train_step(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig, ta
         return sums * (1.0 / ids.size)
 
     def step(params: SceneParams, opt_state: dict, seed: int, sample_ids):
-        ids = _ids(sample_ids)
-        s = ids.size
-        contiguous = bool(s == 0 or np.array_equal(ids, ids[0] + np.arange(s)))
-        xs = [a.detach().clone().requires_grad_(True) for a in leaves(params)]
-        p = from_leaves(xs)
-        opt = optimizer(xs)
-        _load_state(opt, opt_state)
-        if one_shot_max >= s:
-            loss = loss_fn(p, seed, ids)
-            loss.backward()
-        else:
-            with torch.no_grad():
-                img = fast_mean_image(p, seed, ids, contiguous)
-                d = img - target_flat
-                loss = 0.5 * torch.mean(d.dot(d))
-                # dL/d(mean image) = d / n_pix (d.dot(d) sums the channels,
-                # the mean is over pixels), then 1/S maps a cell's radiance
-                # to the mean image
-                cot = d * (1.0 / (n_pix * s))
-            for sid in ids.tolist():
-                cell = render_image_diff(scene, camera, cfg, p, seed, [sid])
-                outs = [(a, g) for a, g in zip(cell, cot) if a.requires_grad]
-                if outs:
-                    torch.autograd.backward([a for a, _ in outs], [g for _, g in outs])
-        for x in xs:  # a parameter the image does not reach has gradient 0
-            if x.grad is None:
-                x.grad = torch.zeros_like(x)
-        opt.step()
-        return (from_leaves(x.detach() for x in xs), opt.state_dict()["state"],
-                loss.detach())
+        with span("train.step"):
+            ids = _ids(sample_ids)
+            s = ids.size
+            contiguous = bool(s == 0 or np.array_equal(ids, ids[0] + np.arange(s)))
+            xs = [a.detach().clone().requires_grad_(True) for a in leaves(params)]
+            p = from_leaves(xs)
+            opt = optimizer(xs)
+            _load_state(opt, opt_state)
+            if one_shot_max >= s:
+                loss = loss_fn(p, seed, ids)
+                loss.backward()
+            else:
+                with span("train.pass1"), torch.no_grad():
+                    img = fast_mean_image(p, seed, ids, contiguous)
+                    d = img - target_flat
+                    loss = 0.5 * torch.mean(d.dot(d))
+                    # dL/d(mean image) = d / n_pix (d.dot(d) sums the channels,
+                    # the mean is over pixels), then 1/S maps a cell's radiance
+                    # to the mean image
+                    cot = d * (1.0 / (n_pix * s))
+                for sid in ids.tolist():
+                    with span("train.cell_forward"):
+                        cell = render_image_diff(scene, camera, cfg, p, seed, [sid])
+                    outs = [(a, g) for a, g in zip(cell, cot) if a.requires_grad]
+                    if outs:
+                        # on the card autograd runs it on its device thread,
+                        # which this span covers in time
+                        with span("train.cell_backward"):
+                            torch.autograd.backward([a for a, _ in outs],
+                                                    [g for _, g in outs])
+            for x in xs:  # a parameter the image does not reach has gradient 0
+                if x.grad is None:
+                    x.grad = torch.zeros_like(x)
+            opt.step()
+            return (from_leaves(x.detach() for x in xs), opt.state_dict()["state"],
+                    loss.detach())
 
     return step, opt_state0, params0

@@ -46,6 +46,7 @@ from raysnail_tpu_torch.config import RenderConfig
 from raysnail_tpu_torch.prelude import rng as prng
 from raysnail_tpu_torch.prelude.sampling import PI
 from raysnail_tpu_torch.prelude.vec import Vec3
+from raysnail_tpu_torch.utils.profiling import span
 
 
 def _slot_layout(kinds: frozenset, has_lights: bool, mix_depth: int = 1):
@@ -284,7 +285,9 @@ def radiance_regen(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
     sample, bounce), fold_all(fold_all(keys0, sid), b), as in the shuffled
     integrator, so both compute the same estimate up to summation order.
 
-    The loop's condition is read on the host once per iteration.
+    The loop's condition is read on the host once per iteration, at its
+    end. Under a running profiler each trip is an `integrator.iteration`
+    span and its bounce body an `integrator.shade` span.
 
     Returns (L_sums (P,) Vec3, n_iterations)."""
     shape = px.shape
@@ -311,24 +314,28 @@ def radiance_regen(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
     T, L = ones, Vec3.zeros(shape, dtype, device)
     alive = torch.ones(shape, dtype=torch.bool, device=device)
     iterations = 0
-    while bool((sid < s_end).any()):
-        kb = prng.fold_all(prng.fold_all(keys0, sid), b)
-        o, d, T, L, alive2 = shade(arrays, o, d, T, L, alive, kb, time)
-        # a path at its final bounce contributes nothing more
-        # (camera.rs:161-163): it is done the moment it is shaded
-        alive2 = alive2 & (b + 1 < cfg.max_depth)
-        done = alive & (~alive2)
-        sid = sid + done.to(torch.int64)
-        regen = done & (sid < s_end)
-        rn = new_ray(sid)
-        o = Vec3.where(regen, rn.origin, o)
-        d = Vec3.where(regen, rn.direction, d)
-        if time is not None:
-            time = torch.where(regen, rn.time, time)
-        T = Vec3.where(regen, ones, T)
-        b = torch.where(done, torch.zeros_like(b), b + 1)
-        alive = alive2 | regen
-        iterations += 1
+    more = px.numel() > 0  # every lane starts below s_end
+    while more:
+        with span("integrator.iteration"):
+            kb = prng.fold_all(prng.fold_all(keys0, sid), b)
+            with span("integrator.shade"):
+                o, d, T, L, alive2 = shade(arrays, o, d, T, L, alive, kb, time)
+            # a path at its final bounce contributes nothing more
+            # (camera.rs:161-163): it is done the moment it is shaded
+            alive2 = alive2 & (b + 1 < cfg.max_depth)
+            done = alive & (~alive2)
+            sid = sid + done.to(torch.int64)
+            regen = done & (sid < s_end)
+            rn = new_ray(sid)
+            o = Vec3.where(regen, rn.origin, o)
+            d = Vec3.where(regen, rn.direction, d)
+            if time is not None:
+                time = torch.where(regen, rn.time, time)
+            T = Vec3.where(regen, ones, T)
+            b = torch.where(done, torch.zeros_like(b), b + 1)
+            alive = alive2 | regen
+            iterations += 1
+            more = bool((sid < s_end).any())
     return L, iterations
 
 
@@ -361,7 +368,9 @@ def radiance_regen_shuffle(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
     neighbouring pixels (coherent walks) for every k; the per-pixel sums
     are the same either way.
 
-    The loop's condition is read on the host once per iteration.
+    The loop's condition is read on the host once per iteration, at its
+    end. Under a running profiler each trip is an `integrator.iteration`
+    span and its bounce body an `integrator.shade` span.
 
     Returns (L_sums row-major (N,) Vec3, n_iterations)."""
     n_pix = cfg.width * cfg.height
@@ -429,29 +438,33 @@ def radiance_regen_shuffle(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
         alive = torch.ones(n_pix, dtype=torch.bool, device=device)
         zeros = Vec3.zeros((n_pix,), dtype, device)
 
-        while bool((k < C).any()):
-            keys_s, _, _ = lane_keys(k, cs0)
-            kb = prng.fold_all(keys_s, b)
-            o, d, T, L_add, alive2 = shade(arrays, o, d, T, zeros, alive, kb, time)
-            # cell (lane, k) of the (N, C) table; a finished lane (k == C)
-            # adds zero radiance, so its column is clamped
-            cell = lanes * C + torch.clamp_max(k, C - 1)
-            table.index_add_(1, cell, torch.stack([L_add.x, L_add.y, L_add.z]))
-            # a path at its final bounce contributes nothing more
-            # (camera.rs:161-163): it is done the moment it is shaded
-            alive2 = alive2 & (b + 1 < cfg.max_depth)
-            done = alive & (~alive2)
-            k = k + done.to(torch.int64)
-            regen = done & (k < C)
-            rn = new_ray(k, cs0)
-            o = Vec3.where(regen, rn.origin, o)
-            d = Vec3.where(regen, rn.direction, d)
-            if time is not None:
-                time = torch.where(regen, rn.time, time)
-            T = Vec3.where(regen, Vec3.ones((n_pix,), dtype, device), T)
-            b = torch.where(alive2, b + 1, torch.zeros_like(b))
-            alive = alive2 | regen
-            iterations += 1
+        more = n_pix > 0  # every lane starts at k = 0 < C
+        while more:
+            with span("integrator.iteration"):
+                keys_s, _, _ = lane_keys(k, cs0)
+                kb = prng.fold_all(keys_s, b)
+                with span("integrator.shade"):
+                    o, d, T, L_add, alive2 = shade(arrays, o, d, T, zeros, alive, kb, time)
+                # cell (lane, k) of the (N, C) table; a finished lane (k == C)
+                # adds zero radiance, so its column is clamped
+                cell = lanes * C + torch.clamp_max(k, C - 1)
+                table.index_add_(1, cell, torch.stack([L_add.x, L_add.y, L_add.z]))
+                # a path at its final bounce contributes nothing more
+                # (camera.rs:161-163): it is done the moment it is shaded
+                alive2 = alive2 & (b + 1 < cfg.max_depth)
+                done = alive & (~alive2)
+                k = k + done.to(torch.int64)
+                regen = done & (k < C)
+                rn = new_ray(k, cs0)
+                o = Vec3.where(regen, rn.origin, o)
+                d = Vec3.where(regen, rn.direction, d)
+                if time is not None:
+                    time = torch.where(regen, rn.time, time)
+                T = Vec3.where(regen, Vec3.ones((n_pix,), dtype, device), T)
+                b = torch.where(alive2, b + 1, torch.zeros_like(b))
+                alive = alive2 | regen
+                iterations += 1
+                more = bool((k < C).any())
 
         # regroup: column c's row i is lane slot (i + c*S) mod N -> roll
         # forward to slot order (pixel order unless tiled)

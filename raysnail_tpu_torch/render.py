@@ -38,6 +38,7 @@ from raysnail_tpu_torch.config import RenderConfig
 from raysnail_tpu_torch.prelude import color as colorlib
 from raysnail_tpu_torch.prelude import rng as prng
 from raysnail_tpu_torch.prelude.vec import Vec3
+from raysnail_tpu_torch.utils.profiling import span
 
 
 def _check(cfg: RenderConfig):
@@ -267,28 +268,31 @@ def render_passes(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
     k_multiple > 1, `render_sums` in tile order through that step; else
     `render`'s full frame, as in the JAX package. On several ranks every
     rank gets the same bits of every pass, so every rank reaches the same
-    noise mask and the ranks' collectives stay in step."""
-    spp = cfg.effective_samples
-    h, w = cfg.height, cfg.width
-    frame = frame_step if frame_step is not None else (
-        make_frame_step(scene, cfg) if step is None and k_multiple == 1 else None)
-    step = step or make_sample_step(scene, cfg)
-    img = _first_pass(scene, camera, cfg, seed, arrays, frame, step, k_multiple)
-    if progress is not None and progress(spp, spp * cfg.passes, img) is False:
+    noise mask and the ranks' collectives stay in step.
+
+    Under a running profiler the call is one `render.frame` span."""
+    with span("render.frame"):
+        spp = cfg.effective_samples
+        h, w = cfg.height, cfg.width
+        frame = frame_step if frame_step is not None else (
+            make_frame_step(scene, cfg) if step is None and k_multiple == 1 else None)
+        step = step or make_sample_step(scene, cfg)
+        img = _first_pass(scene, camera, cfg, seed, arrays, frame, step, k_multiple)
+        if progress is not None and progress(spp, spp * cfg.passes, img) is False:
+            return img
+        px_full, py_full = _full_grid(cfg)
+        for k in range(1, cfg.passes):
+            redo = calc_noise(img, cfg.compat_noise_bug) >= cfg.noise_threshold
+            idx = np.flatnonzero(redo.ravel())
+            if idx.size == 0:
+                break
+            # tile-coherent dispatch order for the sparse active set too
+            idx = idx[np.argsort(_tile_key(px_full[idx], py_full[idx], w), kind="stable")]
+            sums = render_sums(scene, camera, cfg, seed + k, px_full[idx], py_full[idx],
+                               step=step, arrays=arrays, k_multiple=k_multiple)
+            flat = img.reshape(-1, 3)
+            flat[idx] = (flat[idx] * k + _to_image(sums, cfg)) / (k + 1.0)
+            img = flat.reshape(h, w, 3)
+            if progress is not None and progress(spp * (k + 1), spp * cfg.passes, img) is False:
+                break
         return img
-    px_full, py_full = _full_grid(cfg)
-    for k in range(1, cfg.passes):
-        redo = calc_noise(img, cfg.compat_noise_bug) >= cfg.noise_threshold
-        idx = np.flatnonzero(redo.ravel())
-        if idx.size == 0:
-            break
-        # tile-coherent dispatch order for the sparse active set too
-        idx = idx[np.argsort(_tile_key(px_full[idx], py_full[idx], w), kind="stable")]
-        sums = render_sums(scene, camera, cfg, seed + k, px_full[idx], py_full[idx],
-                           step=step, arrays=arrays, k_multiple=k_multiple)
-        flat = img.reshape(-1, 3)
-        flat[idx] = (flat[idx] * k + _to_image(sums, cfg)) / (k + 1.0)
-        img = flat.reshape(h, w, 3)
-        if progress is not None and progress(spp * (k + 1), spp * cfg.passes, img) is False:
-            break
-    return img

@@ -1,5 +1,11 @@
-"""Tracing and throughput helpers: the JAX package's `utils/profiling.py` on
-torch.profiler and CUDA synchronisation."""
+"""Tracing on torch.profiler: the spans the program emits, and a Chrome-trace
+exporter for a block of code.
+
+Tracing is on exactly when a torch profiler runs (`device_trace`, or any
+`torch.profiler.profile` of the caller's). A span is then a
+`record_function` range among the profiler's own host events, on the same
+clock as the device activity it records. With no profiler running a span
+costs one flag read."""
 
 from __future__ import annotations
 
@@ -12,13 +18,27 @@ import torch
 
 log = logging.getLogger("raysnail")
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context naming a stretch of the program in a running profiler's
+    trace; a shared no-op context when none runs (an unguarded
+    `record_function` costs tens of microseconds even then)."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
 
 @contextlib.contextmanager
 def device_trace(trace_dir: str):
     """Record a torch.profiler trace of the block (host and, where CUDA is
     available, device activity) and write it as a Chrome trace under
-    `trace_dir` (viewable in Perfetto). Yields the profiler, or None with a
-    warning where profiling cannot start."""
+    `trace_dir` (viewable in Perfetto), the program's spans among the host
+    events: `render.frame`, `integrator.iteration`, `integrator.shade` and
+    the train step's `train.step`, `train.pass1`, `train.cell_forward` and
+    `train.cell_backward`. Yields the profiler, or None with a warning
+    where profiling cannot start."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -40,31 +60,3 @@ def device_trace(trace_dir: str):
             path = os.path.join(trace_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
             prof.export_chrome_trace(path)
             log.info("profiler trace written to %s", path)
-
-
-class Throughput:
-    """Accumulates (rays, seconds) per named stage and reports Mrays/s."""
-
-    def __init__(self):
-        self.stages: dict[str, list] = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str, rays: int, block_on=None):
-        """Time the block; with `block_on` (a tensor, or anything on a device)
-        the card is synchronised before the clock stops, so queued work is
-        counted."""
-        t0 = time.perf_counter()
-        yield
-        if block_on is not None and torch.cuda.is_available():
-            torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        self.stages.setdefault(name, [0, 0.0])
-        self.stages[name][0] += rays
-        self.stages[name][1] += dt
-
-    def report(self) -> dict:
-        return {
-            name: {"rays": r, "seconds": round(s, 4),
-                   "mrays_per_s": round(r / max(s, 1e-9) / 1e6, 3)}
-            for name, (r, s) in self.stages.items()
-        }
