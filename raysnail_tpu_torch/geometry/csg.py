@@ -318,6 +318,14 @@ def _has_static_leaf(tree) -> bool:
     return any(_has_static_leaf(getattr(tree, f)) for f in _CHILDREN[type(tree)])
 
 
+def walks_bvh(tree) -> bool:
+    """Whether a tree holds a mesh above the dense sweep's size, whose hits
+    come from the BVH traversal kernel."""
+    if isinstance(tree, MeshLeaf):
+        return not tree.brute
+    return any(walks_bvh(getattr(tree, f)) for f in _CHILDREN[type(tree)])
+
+
 def _structure(x):
     """What must agree for two trees to stack: node types, nesting and which
     fields are None; not the parameters' or materials' values."""

@@ -6,7 +6,8 @@ body over a dense ray batch with masked lanes, driven by one of three loops:
     frame step) and its per-pixel form (`radiance_regen`, the sample step):
     when a lane's path dies it starts its next cell in place, so the loop
     runs for about spp x the mean path length iterations instead of
-    spp x max_depth;
+    spp x max_depth. On the card the shuffled loop replays its trips as
+    CUDA graphs (`graphs.py`);
   * the per-sample scan (`radiance`, `radiance_and_alive`): max_depth
     bounces of one sample per lane, dead lanes masked. It takes any keys
     (fast streams or threefry keys); it is the gradient path
@@ -37,6 +38,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from raysnail_tpu_torch import graphs as trip_graphs
 from raysnail_tpu_torch import lights as lightslib
 from raysnail_tpu_torch import materials as matlib
 from raysnail_tpu_torch import scene as scenelib
@@ -339,6 +341,21 @@ def radiance_regen(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
     return L, iterations
 
 
+def replays_trips(scene: scenelib.Scene, arrays: scenelib.SceneArrays, camera,
+                  routes: scenelib.Routes) -> bool:
+    """Whether `radiance_regen_shuffle` runs its trips from CUDA graphs
+    (`graphs.TripGraphs`), as read from the call alone: where the scene
+    lies on a CUDA device, no tensor the call reads wants a gradient (the
+    autograd Functions would take the places of K1 and K7, the graphs'
+    holes), and a trip launches no kernel by hand but K1 and K7: no BVH
+    traversal (`scene.walks_bvh`) and no Mandelbulb march. Elsewhere the
+    loop runs eagerly, as it does on the CPU."""
+    return (scene.device.type == "cuda"
+            and not (torch.is_grad_enabled() and _requires_grad((arrays, camera)))
+            and not scenelib.walks_bvh(scene, arrays, routes)
+            and not scene.mandelbulbs)
+
+
 # lanes per image tile on the kernel routes, and the tile shapes tried in order
 PKT = 128
 TILES = ((16, 8), (8, 16), (32, 4), (4, 32), (64, 2), (128, 1))
@@ -368,9 +385,18 @@ def radiance_regen_shuffle(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
     neighbouring pixels (coherent walks) for every k; the per-pixel sums
     are the same either way.
 
+    Where `replays_trips` holds (on the card, no gradient wanted, no BVH
+    traversal), the call's first trip is captured as CUDA graphs with K1
+    and K7 launched eagerly between them, and every later trip replays them
+    (`graphs.TripGraphs`): the same kernels on the same values, so the same
+    bits, from a few dozen host calls a trip instead of about a thousand.
+    The graphs and their memory pool are released when the call returns.
+
     The loop's condition is read on the host once per iteration, at its
     end. Under a running profiler each trip is an `integrator.iteration`
-    span and its bounce body an `integrator.shade` span.
+    span and its bounce body an `integrator.shade` span; a trip run from the
+    graphs holds an `integrator.graphed` span, and each stretch of the
+    capture an `integrator.capture` span.
 
     Returns (L_sums row-major (N,) Vec3, n_iterations)."""
     n_pix = cfg.width * cfg.height
@@ -424,54 +450,131 @@ def radiance_regen_shuffle(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
         return generate_rays(camera, px, py, s_i, s_j, sqrt_spp, cfg.width,
                              cfg.height, keys_s)
 
-    L_pix = Vec3.zeros((n_pix,), dtype, device)
-    iterations = 0
-    for chunk in range(n_chunks):
-        cs0 = s0 + chunk * C
-        k = torch.zeros(n_pix, dtype=torch.int64, device=device)
-        b = torch.zeros(n_pix, dtype=torch.int64, device=device)
-        r0 = new_ray(k, cs0)
-        o, d = r0.origin, r0.direction
-        time = r0.time if scene.static.moving else None
-        T = Vec3.ones((n_pix,), dtype, device)
-        table = torch.zeros((3, n_pix * C), dtype=dtype, device=device)
-        alive = torch.ones(n_pix, dtype=torch.bool, device=device)
-        zeros = Vec3.zeros((n_pix,), dtype, device)
+    def trip_keys(k, b, cs0):
+        keys_s, _, _ = lane_keys(k, cs0)
+        return prng.fold_all(keys_s, b)
 
-        more = n_pix > 0  # every lane starts at k = 0 < C
-        while more:
-            with span("integrator.iteration"):
-                keys_s, _, _ = lane_keys(k, cs0)
-                kb = prng.fold_all(keys_s, b)
-                with span("integrator.shade"):
-                    o, d, T, L_add, alive2 = shade(arrays, o, d, T, zeros, alive, kb, time)
-                # cell (lane, k) of the (N, C) table; a finished lane (k == C)
-                # adds zero radiance, so its column is clamped
-                cell = lanes * C + torch.clamp_max(k, C - 1)
-                table.index_add_(1, cell, torch.stack([L_add.x, L_add.y, L_add.z]))
-                # a path at its final bounce contributes nothing more
-                # (camera.rs:161-163): it is done the moment it is shaded
-                alive2 = alive2 & (b + 1 < cfg.max_depth)
-                done = alive & (~alive2)
-                k = k + done.to(torch.int64)
-                regen = done & (k < C)
-                rn = new_ray(k, cs0)
-                o = Vec3.where(regen, rn.origin, o)
-                d = Vec3.where(regen, rn.direction, d)
-                if time is not None:
-                    time = torch.where(regen, rn.time, time)
-                T = Vec3.where(regen, Vec3.ones((n_pix,), dtype, device), T)
-                b = torch.where(alive2, b + 1, torch.zeros_like(b))
-                alive = alive2 | regen
-                iterations += 1
-                more = bool((k < C).any())
+    def regenerate(table, o, d, T, time, L_add, alive, alive2, k, b, cs0):
+        """The trip's bookkeeping after the shade -> the next trip's
+        (o, d, T, time, alive, k, b) and whether a lane has cells left."""
+        # cell (lane, k) of the (N, C) table; a finished lane (k == C)
+        # adds zero radiance, so its column is clamped
+        cell = lanes * C + torch.clamp_max(k, C - 1)
+        table.index_add_(1, cell, torch.stack([L_add.x, L_add.y, L_add.z]))
+        # a path at its final bounce contributes nothing more
+        # (camera.rs:161-163): it is done the moment it is shaded
+        alive2 = alive2 & (b + 1 < cfg.max_depth)
+        done = alive & (~alive2)
+        k = k + done.to(torch.int64)
+        regen = done & (k < C)
+        rn = new_ray(k, cs0)
+        o = Vec3.where(regen, rn.origin, o)
+        d = Vec3.where(regen, rn.direction, d)
+        if time is not None:
+            time = torch.where(regen, rn.time, time)
+        T = Vec3.where(regen, Vec3.ones((n_pix,), dtype, device), T)
+        b = torch.where(alive2, b + 1, torch.zeros_like(b))
+        return o, d, T, time, alive2 | regen, k, b, (k < C).any()
 
-        # regroup: column c's row i is lane slot (i + c*S) mod N -> roll
-        # forward to slot order (pixel order unless tiled)
+    def chunk_sums(table):
+        """Regroup: column c's row i is lane slot (i + c*S) mod N -> roll
+        forward to slot order (pixel order unless tiled), a column at a
+        time."""
         table = table.view(3, n_pix, C)
         for c in range(C):
             shift = (c * S) % n_pix
-            L_pix = L_pix + Vec3(*(torch.roll(table[a, :, c], shift) for a in range(3)))
+            yield Vec3(*(torch.roll(table[a, :, c], shift) for a in range(3)))
+
+    def chunks_eager():
+        L_pix = Vec3.zeros((n_pix,), dtype, device)
+        iterations = 0
+        for chunk in range(n_chunks):
+            cs0 = s0 + chunk * C
+            k = torch.zeros(n_pix, dtype=torch.int64, device=device)
+            b = torch.zeros(n_pix, dtype=torch.int64, device=device)
+            r0 = new_ray(k, cs0)
+            o, d = r0.origin, r0.direction
+            time = r0.time if scene.static.moving else None
+            T = Vec3.ones((n_pix,), dtype, device)
+            table = torch.zeros((3, n_pix * C), dtype=dtype, device=device)
+            alive = torch.ones(n_pix, dtype=torch.bool, device=device)
+            zeros = Vec3.zeros((n_pix,), dtype, device)
+
+            more = n_pix > 0  # every lane starts at k = 0 < C
+            while more:
+                with span("integrator.iteration"):
+                    kb = trip_keys(k, b, cs0)
+                    with span("integrator.shade"):
+                        o, d, T, L_add, alive2 = shade(arrays, o, d, T, zeros, alive, kb, time)
+                    o, d, T, time, alive, k, b, left = regenerate(
+                        table, o, d, T, time, L_add, alive, alive2, k, b, cs0)
+                    iterations += 1
+                    more = bool(left)
+            for add in chunk_sums(table):
+                L_pix = L_pix + add
+        return L_pix, iterations
+
+    def chunks_graphed(graphs):
+        """chunks_eager's loop with every trip's body run from `graphs`:
+        the call's first trip captures it, every later trip replays it.
+        The loop's state lives in buffers that the last piece writes in
+        place; the chunk's first cell is a device value, so that the graphs
+        serve every chunk."""
+        L_pix = Vec3.zeros((n_pix,), dtype, device)
+        iterations = 0
+        empty = lambda dt=dtype: torch.empty(n_pix, dtype=dt, device=device)  # noqa: E731
+        cs0 = torch.empty(1, dtype=torch.int64, device=device)
+        k, b = empty(torch.int64), empty(torch.int64)
+        o, d, T = (Vec3(empty(), empty(), empty()) for _ in range(3))
+        time = empty() if scene.static.moving else None
+        alive = empty(torch.bool)
+        table = torch.empty((3, n_pix * C), dtype=dtype, device=device)
+        zeros = Vec3.zeros((n_pix,), dtype, device)
+        state = (*o, *d, *T, alive, k, b) + ((time,) if time is not None else ())
+
+        def regenerate_in_place(o2, d2, T2, L_add, alive2):
+            o3, d3, T3, time3, alive3, k3, b3, left = regenerate(
+                table, o2, d2, T2, time, L_add, alive, alive2, k, b, cs0)
+            for buf, value in zip(state, (*o3, *d3, *T3, alive3, k3, b3, time3)):
+                buf.copy_(value)
+            return left
+
+        for chunk in range(n_chunks):
+            cs0.fill_(s0 + chunk * C)
+            k.zero_()
+            b.zero_()
+            r0 = new_ray(k, cs0)
+            for buf, value in zip((*o, *d, time), (*r0.origin, *r0.direction, r0.time)):
+                if buf is not None:
+                    buf.copy_(value)
+            for t in T:
+                t.fill_(1.0)
+            table.zero_()
+            alive.fill_(True)
+            del r0
+
+            more = n_pix > 0  # every lane starts at k = 0 < C
+            while more:
+                with span("integrator.iteration"), span("integrator.graphed"):
+                    kb = graphs.piece(trip_keys, k, b, cs0)
+                    with span("integrator.shade"):
+                        o2, d2, T2, L_add, alive2 = graphs.piece(
+                            shade, arrays, o, d, T, zeros, alive, kb, time)
+                    left = graphs.piece(regenerate_in_place, o2, d2, T2, L_add, alive2)
+                    graphs.end_trip()
+                    iterations += 1
+                    more = bool(left)
+            for add in chunk_sums(table):
+                L_pix = L_pix + add
+        return L_pix, iterations
+
+    if replays_trips(scene, arrays, camera, routes):
+        with torch.cuda.device(device):
+            graphs = trip_graphs.TripGraphs(device)
+            L_pix, iterations = chunks_graphed(graphs)
+            graphs.release()
+    else:
+        L_pix, iterations = chunks_eager()
     if tile is not None:
         owner = torch.empty_like(lanes)
         owner[slot_pixel(lanes)] = lanes  # the slot holding pixel p

@@ -123,6 +123,31 @@ class Routes(NamedTuple):
     packet: Optional[bool] = None
 
 
+def _spheres_walk(arrays: SceneArrays, routes: Routes) -> bool:
+    return routes.sphere_bvh and arrays.spheres.pk_bb is not None
+
+
+def _boxes_walk(arrays: SceneArrays, routes: Routes) -> bool:
+    return routes.box_bvh and arrays.boxes.pk_bb is not None
+
+
+def _mesh_walks(scene: Scene, routes: Routes) -> bool:
+    # on the CPU a big mesh takes the kernel route's plain version: the
+    # port carries no thin-BVH lockstep walk
+    return routes.mesh_kernel or not scene.static.tri_brute
+
+
+def walks_bvh(scene: Scene, arrays: SceneArrays, routes: Routes) -> bool:
+    """Whether `intersect` on these routes runs a BVH traversal kernel (and,
+    for the mesh's kernel route, `ops/binning.py`): the spheres' or boxes'
+    BVH route, the mesh's kernel route, or a CSG mesh above the dense
+    sweep's size. The same conditions `intersect` branches on."""
+    return ((arrays.spheres is not None and _spheres_walk(arrays, routes))
+            or (arrays.boxes is not None and _boxes_walk(arrays, routes))
+            or (arrays.triangles is not None and _mesh_walks(scene, routes))
+            or any(csg.walks_bvh(tree) for tree in scene.csg_trees))
+
+
 def intersect(scene: Scene, arrays: SceneArrays, ray, t_min, t_max, key=None,
               routes: Routes = Routes(), active=None) -> Hit:
     """Closest hit across all primitive groups, in the JAX package's order:
@@ -143,10 +168,10 @@ def intersect(scene: Scene, arrays: SceneArrays, ray, t_min, t_max, key=None,
         best = combine_hits(best, spheres.intersect(
             arrays.spheres, ray, t_min, t_max,
             need_uv=texlib.IMAGE in scene.static.tex_modes,
-            use_bvh=routes.sphere_bvh, active=active, packet=routes.packet,
+            use_bvh=_spheres_walk(arrays, routes), active=active, packet=routes.packet,
             moving=scene.static.moving))
     if arrays.boxes is not None:
-        if routes.box_bvh and arrays.boxes.pk_bb is not None:
+        if _boxes_walk(arrays, routes):
             best = combine_hits(best, boxes.intersect_kernel(
                 arrays.boxes, ray, t_min, t_max, active=active, t_cap=best.t,
                 packet=routes.packet))
@@ -157,9 +182,7 @@ def intersect(scene: Scene, arrays: SceneArrays, ray, t_min, t_max, key=None,
     if arrays.quadrics is not None:
         best = combine_hits(best, quadrics.intersect(arrays.quadrics, ray, t_min, t_max))
     if arrays.triangles is not None:
-        # on the CPU a big mesh takes the kernel route's plain version: the
-        # port carries no thin-BVH lockstep walk
-        if routes.mesh_kernel or not scene.static.tri_brute:
+        if _mesh_walks(scene, routes):
             tri_hit = triangles.intersect_kernel(
                 arrays.triangles, ray, t_min, t_max, active=active, t_cap=best.t,
                 bin_mode=routes.mesh_bin, packet=routes.packet)
