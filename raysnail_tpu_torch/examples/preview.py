@@ -30,14 +30,10 @@ def build(which: str, device):
                 book1.balls_camera(WIDTH, HEIGHT, device=device))
 
     if which == "mandelbulb":
-        b = SceneBuilder()
-        b.add(ir.Mandelbulb(material=ir.BlinnPhong(0.3, 60.0, ir.Constant((0.8, 0.75, 0.6)))))
-        b.add(ir.Sphere((3, 5, 3), 1.0, ir.DiffuseLight(ir.Constant((1, 0.95, 0.9)), 6.0)),
-              light=True)
-        b.set_background((0.2, 0.25, 0.35), (0.5, 0.6, 0.8))
-        cam = build_camera(look_from=(2.2, 1.4, 2.2), look_at=(0, 0, 0), fov=45,
-                           width=WIDTH, height=HEIGHT, device=device)
-        return b.compile(device=device), cam
+        from raysnail_tpu_torch.config import RenderConfig
+        from raysnail_tpu_torch.utils.golden import mandelbulb_scene
+
+        return mandelbulb_scene(RenderConfig(width=WIDTH, height=HEIGHT), device)
 
     if which == "csg":
         from raysnail_tpu_torch.config import RenderConfig

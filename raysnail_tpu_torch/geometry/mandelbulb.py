@@ -38,6 +38,7 @@ from raysnail_tpu_torch.ops import mandelbulb_march as _march
 from raysnail_tpu_torch.ops.mandelbulb_march import (  # noqa: F401  (the module's API)
     BAILOUT, DE_ITERATIONS, MAX_STEPS, POWER, RADIUS, STEP_SCALE, SURF_EPS)
 from raysnail_tpu_torch.prelude.vec import Vec3
+from raysnail_tpu_torch.utils.profiling import span
 
 
 def distance_est(p: Vec3, iterations: int = DE_ITERATIONS):
@@ -84,9 +85,10 @@ class MandelbulbNode(NamedTuple):
     def hit(self, ray, t_min, t_max, active=None) -> Hit:
         """Closest surface hit of each ray, through `ops.mandelbulb_march`
         (the kernel K6 on the card). Lanes that miss, or hit outside
-        (t_min, t_max), are invalid with t = BIG."""
+        (t_min, t_max), are invalid with t = BIG. Under a running profiler
+        the march is a `geometry.march` span."""
         d = ray.direction
-        with torch.no_grad():
+        with torch.no_grad(), span("geometry.march"):
             cols = torch.broadcast_tensors(*ray.origin, *d)
             o3, d3 = torch.stack(cols[:3]), torch.stack(cols[3:])
             act = None if active is None else active.contiguous()

@@ -24,7 +24,8 @@ raises; on CPU tensors it runs `mandelbulb_march_plain`. Both round every
 operation alike (the kernel is built with -fmad=false and calls sqrtf,
 logf, atan2f and asinf as PyTorch's CUDA kernels do), so on the
 card they agree bit for bit. `mandelbulb_march.launches` counts kernel
-launches only.
+launches only; `mandelbulb_march.rays` counts the rays handed to the march
+on either device, live or not.
 
 Division by a constant takes a tensor divisor (`prelude.vec.div_const`), so
 the plain version rounds it as the CPU, the JAX package and the kernel do.
@@ -251,6 +252,7 @@ def mandelbulb_march(origin, direction, t_min, t_max, active=None, stats=False):
     _check("direction", direction, (3, n), torch.float32, device)
     if active is not None:
         _check("active", active, (n,), torch.bool, device)
+    mandelbulb_march.rays += n
     if device.type == "cpu":
         return mandelbulb_march_plain(origin, direction, t_min, t_max, active, stats)
     if device.type != "cuda":
@@ -278,3 +280,4 @@ def mandelbulb_march(origin, direction, t_min, t_max, active=None, stats=False):
 
 
 mandelbulb_march.launches = 0
+mandelbulb_march.rays = 0

@@ -270,29 +270,41 @@ def render_passes(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
     rank gets the same bits of every pass, so every rank reaches the same
     noise mask and the ranks' collectives stay in step.
 
-    Under a running profiler the call is one `render.frame` span."""
+    Under a running profiler the call is one `render.frame` span holding a
+    `render.pass` span a pass, and each later pass a `render.noise` span
+    (the noise map, its mask and the tile sort) before its render.
+    `render_passes.redone_pixels` counts the pixels the later passes
+    re-render, over every call."""
     with span("render.frame"):
         spp = cfg.effective_samples
         h, w = cfg.height, cfg.width
         frame = frame_step if frame_step is not None else (
             make_frame_step(scene, cfg) if step is None and k_multiple == 1 else None)
         step = step or make_sample_step(scene, cfg)
-        img = _first_pass(scene, camera, cfg, seed, arrays, frame, step, k_multiple)
+        with span("render.pass"):
+            img = _first_pass(scene, camera, cfg, seed, arrays, frame, step, k_multiple)
         if progress is not None and progress(spp, spp * cfg.passes, img) is False:
             return img
         px_full, py_full = _full_grid(cfg)
         for k in range(1, cfg.passes):
-            redo = calc_noise(img, cfg.compat_noise_bug) >= cfg.noise_threshold
-            idx = np.flatnonzero(redo.ravel())
-            if idx.size == 0:
-                break
-            # tile-coherent dispatch order for the sparse active set too
-            idx = idx[np.argsort(_tile_key(px_full[idx], py_full[idx], w), kind="stable")]
-            sums = render_sums(scene, camera, cfg, seed + k, px_full[idx], py_full[idx],
-                               step=step, arrays=arrays, k_multiple=k_multiple)
-            flat = img.reshape(-1, 3)
-            flat[idx] = (flat[idx] * k + _to_image(sums, cfg)) / (k + 1.0)
-            img = flat.reshape(h, w, 3)
+            with span("render.pass"):
+                with span("render.noise"):
+                    redo = calc_noise(img, cfg.compat_noise_bug) >= cfg.noise_threshold
+                    idx = np.flatnonzero(redo.ravel())
+                    # tile-coherent dispatch order for the sparse active set too
+                    idx = idx[np.argsort(_tile_key(px_full[idx], py_full[idx], w),
+                                         kind="stable")]
+                if idx.size == 0:
+                    break
+                render_passes.redone_pixels += int(idx.size)
+                sums = render_sums(scene, camera, cfg, seed + k, px_full[idx], py_full[idx],
+                                   step=step, arrays=arrays, k_multiple=k_multiple)
+                flat = img.reshape(-1, 3)
+                flat[idx] = (flat[idx] * k + _to_image(sums, cfg)) / (k + 1.0)
+                img = flat.reshape(h, w, 3)
             if progress is not None and progress(spp * (k + 1), spp * cfg.passes, img) is False:
                 break
         return img
+
+
+render_passes.redone_pixels = 0

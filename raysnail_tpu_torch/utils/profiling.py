@@ -35,10 +35,13 @@ def device_trace(trace_dir: str):
     """Record a torch.profiler trace of the block (host and, where CUDA is
     available, device activity) and write it as a Chrome trace under
     `trace_dir` (viewable in Perfetto), the program's spans among the host
-    events: `render.frame`, `integrator.iteration`, `integrator.shade` and
-    the train step's `train.step`, `train.pass1`, `train.cell_forward` and
-    `train.cell_backward`. Yields the profiler, or None with a warning
-    where profiling cannot start."""
+    events: `render.frame` (a `render.render_passes` call), `render.pass`
+    (each of its passes) and `render.noise` (a later pass's noise map, mask
+    and tile sort), `integrator.iteration`, `integrator.shade`,
+    `integrator.graphed` and `integrator.capture`, `geometry.march` (a
+    Mandelbulb's march, K6 on the card) and the train step's `train.step`,
+    `train.pass1`, `train.cell_forward` and `train.cell_backward`. Yields
+    the profiler, or None with a warning where profiling cannot start."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
