@@ -103,7 +103,7 @@ and exits non-zero if any fails:
               each a first frame with its kernel launches per shade iteration
               and its peak memory; mandelbulb-passes4 (500x300@25spp, depth
               6, passes 4, seed 7, as bench.py), whose K6 launches must equal
-              its intersect calls; two example.sdl frames at 200x125@16spp
+              its shade iterations; two example.sdl frames at 200x125@16spp
               through the scan integrator, one with path_regen="never" and
               one with rng="threefry", each through K1 and with its channel
               means within SCAN_MEAN_ATOL of the default frame's. Each run
@@ -718,22 +718,31 @@ def bulb_bounce_rays(o3, d3, out, gen):
 
 @contextlib.contextmanager
 def intersect_calls():
-    """Count scene.intersect calls in the block (the integrator calls it
-    once a shade iteration): -> a dict whose "n" holds the count."""
+    """Count the shade iterations in the block: scene.intersect calls (the
+    integrator calls it once a shade iteration, or once while capturing a
+    trip as CUDA graphs) and the trips replayed from the graphs, which call
+    none -> a dict whose "n" holds the count."""
+    from raysnail_tpu_torch import graphs
     from raysnail_tpu_torch import scene as scene_mod
 
     seen = {"n": 0}
-    inner = scene_mod.intersect
+    inner, end_trip = scene_mod.intersect, graphs.TripGraphs.end_trip
 
     def counted(*args, **kwargs):
         seen["n"] += 1
         return inner(*args, **kwargs)
 
+    def replayed(self):
+        seen["n"] += self._captured
+        return end_trip(self)
+
     scene_mod.intersect = counted
+    graphs.TripGraphs.end_trip = replayed
     try:
         yield seen
     finally:
         scene_mod.intersect = inner
+        graphs.TripGraphs.end_trip = end_trip
 
 
 def check_bvh_kernel(kind, args, t_min, t_max, label: str, time_it: bool):
@@ -1665,7 +1674,7 @@ def run(device: torch.device, card: str, profile: bool) -> list:
           f"peak {bulb_peak} B allocated; image mean {img.mean()!r}, std {img.std()!r}")
     if (bulb_launches["mandelbulb_march"] != calls["n"] or calls["n"] == 0
             or bulb_launches["sphere_min_t"] != calls["n"]):
-        raise AssertionError("mandelbulb-passes4: K6 and K1 did not run once an intersect call")
+        raise AssertionError("mandelbulb-passes4: K6 and K1 did not run once a shade iteration")
     if not np.isfinite(img).all() or img.shape != (BULB_H, BULB_W, 3) or img.std() < 0.01:
         raise AssertionError(f"mandelbulb-passes4: image not finite or flat (std {img.std()})")
 

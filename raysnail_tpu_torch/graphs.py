@@ -1,9 +1,10 @@
 """One trip of a loop as piecewise CUDA graphs, with the hand-written
 kernels launched eagerly in the holes between them.
 
-A trip of the shuffled regeneration loop (`integrator.radiance_regen_shuffle`)
-is about a thousand small launches of plain PyTorch and four of the
-hand-written kernels K1 and K7. `TripGraphs` captures the call's first trip
+A trip of a regeneration loop (`integrator.radiance_regen_shuffle`, the
+frame step, and `integrator.radiance_regen`, the sample step) is about a
+thousand small launches of plain PyTorch and a few of the hand-written
+kernels K1, K6 and K7. `TripGraphs` captures the call's first trip
 piece by piece and replays those pieces on every later trip:
 
   * a piece is a function of the loop's state (`TripGraphs.piece`). On the
@@ -42,15 +43,17 @@ import contextlib
 import torch
 
 from raysnail_tpu_torch.geometry import spheres
-from raysnail_tpu_torch.ops import rows_select
+from raysnail_tpu_torch.ops import mandelbulb_march, rows_select
 from raysnail_tpu_torch.utils.profiling import span
 
 # The hand-written kernels that run between the graphs, each named by the
 # module attribute its callers go through: K1, the rays' closest sphere
-# (`spheres.intersect`), and K7, the rows' select (`prelude.vec.take_rows`).
+# (`spheres.intersect`), K7, the rows' select (`prelude.vec.take_rows`), and
+# K6, the Mandelbulb's march (`geometry.mandelbulb.MandelbulbNode.hit`).
 # A replay calls them through these attributes, so whatever wraps an
 # attribute sees every call.
-HOLES = ((spheres, "sphere_min_t"), (rows_select, "rows_select"))
+HOLES = ((spheres, "sphere_min_t"), (rows_select, "rows_select"),
+         (mandelbulb_march, "mandelbulb_march"))
 
 _TYPESTR = {torch.float32: "<f4", torch.int64: "<i8", torch.int32: "<i4", torch.bool: "|b1"}
 
@@ -176,7 +179,7 @@ class TripGraphs:
 
         # one attribute dict with the kernel: its launch counters stay its
         # own whichever name a launch bumps them under (K1 bumps them under
-        # its module's name, K7 under the name the cutter takes)
+        # its module's name, K6 and K7 under the name the cutter takes)
         cut.__dict__ = kernel.__dict__
         return cut
 

@@ -6,8 +6,8 @@ body over a dense ray batch with masked lanes, driven by one of three loops:
     frame step) and its per-pixel form (`radiance_regen`, the sample step):
     when a lane's path dies it starts its next cell in place, so the loop
     runs for about spp x the mean path length iterations instead of
-    spp x max_depth. On the card the shuffled loop replays its trips as
-    CUDA graphs (`graphs.py`);
+    spp x max_depth. On the card both loops replay their trips as CUDA
+    graphs (`graphs.py`);
   * the per-sample scan (`radiance`, `radiance_and_alive`): max_depth
     bounces of one sample per lane, dead lanes masked. It takes any keys
     (fast streams or threefry keys); it is the gradient path
@@ -34,6 +34,8 @@ pdf).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -287,9 +289,19 @@ def radiance_regen(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
     sample, bounce), fold_all(fold_all(keys0, sid), b), as in the shuffled
     integrator, so both compute the same estimate up to summation order.
 
+    Where `replays_trips` holds (on the card, no gradient wanted, no BVH
+    traversal), the call's first trip is captured as CUDA graphs with K1, K6
+    and K7 launched eagerly between them, and every later trip replays them
+    (`graphs.TripGraphs`): the same kernels on the same values, so the same
+    bits. The loop's state then lives in buffers that the trip's last piece
+    writes in place. The graphs and their memory pool are released when the
+    call returns.
+
     The loop's condition is read on the host once per iteration, at its
     end. Under a running profiler each trip is an `integrator.iteration`
-    span and its bounce body an `integrator.shade` span.
+    span and its bounce body an `integrator.shade` span; a trip run from the
+    graphs holds an `integrator.graphed` span, and each stretch of the
+    capture an `integrator.capture` span.
 
     Returns (L_sums (P,) Vec3, n_iterations)."""
     shape = px.shape
@@ -297,8 +309,10 @@ def radiance_regen(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
     sqrt_spp = cfg.sqrt_spp
     if cfg.max_depth <= 0 or n_samples <= 0:  # depth 0 renders black (camera.rs:161-163)
         return Vec3.zeros(shape, dtype, device), 0
-    shade = _make_shade(scene, cfg, kernel_routes(scene, arrays, cfg))
+    routes = kernel_routes(scene, arrays, cfg)
+    shade = _make_shade(scene, cfg, routes)
     s_end = s0 + n_samples
+    ones = Vec3.ones(shape, dtype, device)
 
     def new_ray(sid):
         keys_s = prng.fold_all(keys0, sid)
@@ -307,53 +321,99 @@ def radiance_regen(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
         return generate_rays(camera, px, py, s_i, s_j, sqrt_spp, cfg.width, cfg.height,
                              keys_s)
 
+    def trip_keys(sid, b):
+        return prng.fold_all(prng.fold_all(keys0, sid), b)
+
+    def regenerate(o, d, T, L, time, alive, alive2, sid, b, bufs):
+        """The trip's bookkeeping after the shade -> the next trip's state
+        (o, d, T, L, time, alive, sid, b), written into `bufs` where they
+        are given, and whether a lane has samples left."""
+        # a path at its final bounce contributes nothing more
+        # (camera.rs:161-163): it is done the moment it is shaded
+        alive2 = alive2 & (b + 1 < cfg.max_depth)
+        done = alive & (~alive2)
+        sid = sid + done.to(torch.int64)
+        regen = done & (sid < s_end)
+        rn = new_ray(sid)
+        o = Vec3.where(regen, rn.origin, o)
+        d = Vec3.where(regen, rn.direction, d)
+        if time is not None:
+            time = torch.where(regen, rn.time, time)
+        T = Vec3.where(regen, ones, T)
+        b = torch.where(done, torch.zeros_like(b), b + 1)
+        state = (o, d, T, L, time, alive2 | regen, sid, b)
+        if bufs is not None:
+            for buf, value in zip(_leaves(bufs), _leaves(state)):
+                buf.copy_(value)
+            state = bufs
+        return state, (sid < s_end).any()
+
+    def loop(state, graphs=None):
+        """The trips from `state` until every lane is past s_end. With
+        `graphs`, each trip's pieces run through them and `state` is the
+        buffers they write."""
+        run = graphs.piece if graphs is not None else _call
+        bufs = state if graphs is not None else None
+        iterations = 0
+        more = px.numel() > 0  # every lane starts below s_end
+        while more:
+            with span("integrator.iteration"), (span("integrator.graphed") if graphs is not None
+                                                 else contextlib.nullcontext()):
+                o, d, T, L, time, alive, sid, b = state
+                kb = run(trip_keys, sid, b)
+                with span("integrator.shade"):
+                    o, d, T, L, alive2 = run(shade, arrays, o, d, T, L, alive, kb, time)
+                state, left = run(regenerate, o, d, T, L, time, alive, alive2, sid, b, bufs)
+                if graphs is not None:
+                    graphs.end_trip()
+                iterations += 1
+                more = bool(left)
+        return state[3], iterations
+
+    # every tensor of the state its own memory (Vec3.full, where Vec3.ones
+    # shares one among x, y and z), so that it can serve as a graph's buffer
     sid = torch.full(shape, s0, dtype=torch.int64, device=device)
-    b = torch.zeros(shape, dtype=torch.int64, device=device)
     r0 = new_ray(sid)
-    o, d = r0.origin, r0.direction
-    time = r0.time if scene.static.moving else None
-    ones = Vec3.ones(shape, dtype, device)
-    T, L = ones, Vec3.zeros(shape, dtype, device)
-    alive = torch.ones(shape, dtype=torch.bool, device=device)
-    iterations = 0
-    more = px.numel() > 0  # every lane starts below s_end
-    while more:
-        with span("integrator.iteration"):
-            kb = prng.fold_all(prng.fold_all(keys0, sid), b)
-            with span("integrator.shade"):
-                o, d, T, L, alive2 = shade(arrays, o, d, T, L, alive, kb, time)
-            # a path at its final bounce contributes nothing more
-            # (camera.rs:161-163): it is done the moment it is shaded
-            alive2 = alive2 & (b + 1 < cfg.max_depth)
-            done = alive & (~alive2)
-            sid = sid + done.to(torch.int64)
-            regen = done & (sid < s_end)
-            rn = new_ray(sid)
-            o = Vec3.where(regen, rn.origin, o)
-            d = Vec3.where(regen, rn.direction, d)
-            if time is not None:
-                time = torch.where(regen, rn.time, time)
-            T = Vec3.where(regen, ones, T)
-            b = torch.where(done, torch.zeros_like(b), b + 1)
-            alive = alive2 | regen
-            iterations += 1
-            more = bool((sid < s_end).any())
-    return L, iterations
+    state = (r0.origin, r0.direction, Vec3.full(1.0, shape, dtype, device),
+             Vec3.full(0.0, shape, dtype, device), r0.time if scene.static.moving else None,
+             torch.ones(shape, dtype=torch.bool, device=device), sid,
+             torch.zeros(shape, dtype=torch.int64, device=device))
+    del r0
+    if not replays_trips(scene, arrays, camera, routes):
+        return loop(state)
+    with torch.cuda.device(device):
+        graphs = trip_graphs.TripGraphs(device)
+        out = loop(state, graphs)
+        graphs.release()
+    return out
+
+
+def _call(fn, *args):
+    return fn(*args)
+
+
+def _leaves(tree) -> list:
+    """The tensors of a nest of tuples and Vec3s, in order (None skipped)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (tuple, Vec3)):
+        return [t for a in tree for t in _leaves(a)]
+    return []
 
 
 def replays_trips(scene: scenelib.Scene, arrays: scenelib.SceneArrays, camera,
                   routes: scenelib.Routes) -> bool:
-    """Whether `radiance_regen_shuffle` runs its trips from CUDA graphs
-    (`graphs.TripGraphs`), as read from the call alone: where the scene
-    lies on a CUDA device, no tensor the call reads wants a gradient (the
-    autograd Functions would take the places of K1 and K7, the graphs'
-    holes), and a trip launches no kernel by hand but K1 and K7: no BVH
-    traversal (`scene.walks_bvh`) and no Mandelbulb march. Elsewhere the
-    loop runs eagerly, as it does on the CPU."""
+    """Whether a regeneration loop (`radiance_regen_shuffle`, the frame
+    step, and `radiance_regen`, the sample step) runs its trips from CUDA
+    graphs (`graphs.TripGraphs`), as read from the call alone: where the
+    scene lies on a CUDA device, no tensor the call reads wants a gradient
+    (the autograd Functions would take the places of K1 and K7, the graphs'
+    holes), and a trip launches no kernel by hand but the holes K1, K6 and
+    K7: no BVH traversal (`scene.walks_bvh`). Elsewhere the loop runs
+    eagerly, as it does on the CPU."""
     return (scene.device.type == "cuda"
             and not (torch.is_grad_enabled() and _requires_grad((arrays, camera)))
-            and not scenelib.walks_bvh(scene, arrays, routes)
-            and not scene.mandelbulbs)
+            and not scenelib.walks_bvh(scene, arrays, routes))
 
 
 # lanes per image tile on the kernel routes, and the tile shapes tried in order

@@ -1,17 +1,22 @@
-"""The shuffled regeneration loop's trips as CUDA graphs (`graphs.py`,
-`integrator.replays_trips`).
+"""The regeneration loops' trips as CUDA graphs (`graphs.py`,
+`integrator.replays_trips`): the shuffled loop of the frame step and the
+sample step's loop, which the Mandelbulb and every later adaptive pass run.
 
 On the CPU: the rule that decides whether a call replays, read from the
 call alone (the scene's device and routes, whether a tensor wants a
 gradient), on scenes lowered to the CPU and then labelled as the card's,
-which is all the rule reads; and a CPU frame, which never captures.
+which is all the rule reads; and a CPU frame and sample step, which never
+capture.
 
 On the card (marked `cuda`): a replayed frame against the eager loop's, bit
 for bit, with K1 and K7 called as often and through their module
 attributes; a BVH-route scene that makes no capture; every SDL scene the
-rule admits; the kernels' own launch counters over a replayed frame; and a
-frame under torch.profiler, whose replayed kernels show
-in the trace. The file imports no JAX, so on a machine without it run
+rule admits; the kernels' own launch counters over a replayed frame; a
+frame under torch.profiler, whose replayed kernels show in the trace; and
+the Mandelbulb's adaptive passes through the replayed sample step, each
+pass's image and redo mask bit for bit against the eager loop's, with K1,
+K6 and K7 launched and K6's rays counted as often, and a BVH-route scene's
+later pass, which makes no capture. The file imports no JAX, so on a machine without it run
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_graphs.py -q
 """
@@ -30,8 +35,10 @@ from raysnail_tpu_torch import scene as scenelib
 from raysnail_tpu_torch.config import RenderConfig
 from raysnail_tpu_torch.diff.params import extract_params, inject_params
 from raysnail_tpu_torch.geometry import spheres
+from raysnail_tpu_torch.ops import mandelbulb_march as mm
 from raysnail_tpu_torch.ops import rows_select
 from raysnail_tpu_torch.ops import sphere_min_t as smt
+from raysnail_tpu_torch.prelude import rng as prng
 from raysnail_tpu_torch.scenes import book1
 from raysnail_tpu_torch.sdl.driver import build_scene
 from raysnail_tpu_torch.utils import golden
@@ -73,6 +80,8 @@ def cpu_case(name):
         cfg = SMALL
         return (book1.balls_scene().compile(device="cpu"),
                 book1.balls_camera(cfg.width, cfg.height, device="cpu"), cfg)
+    if name == "bulb":  # the upstream previewer's Mandelbulb: K6 is a hole
+        return (*golden.mandelbulb_scene(SMALL, "cpu"), SMALL)
     return (*build_scene(EXAMPLE, SMALL, "cpu"), SMALL)
 
 
@@ -82,7 +91,8 @@ def cpu_case(name):
     ("mesh", {"mesh_pallas": "never"}, True),             # a small mesh swept densely
     ("book1", {}, True),                                  # 478 spheres through K1
     ("book1", {"sphere_bvh": "force"}, False),            # ... through the sphere traversal
-], ids=["example", "mesh-kernel", "mesh-dense", "book1-K1", "book1-spherebvh"])
+    ("bulb", {}, True),                                   # the march K6 and K1
+], ids=["example", "mesh-kernel", "mesh-dense", "book1-K1", "book1-spherebvh", "bulb"])
 def test_the_rule_follows_the_routes(name, options, replays):
     scene, camera, cfg = cpu_case(name)
     cfg = cfg.replace(**options)
@@ -101,6 +111,43 @@ def test_the_rule_refuses_a_gradient_and_the_cpu():
         assert rule(card, camera, cfg, arrays) is True
     assert rule(card, camera, cfg) is True
     assert rule(scene, camera, cfg) is False  # the CPU's scene
+
+
+def test_the_sample_step_rule_refuses_a_gradient_and_the_cpu():
+    """The predicate `radiance_regen` reads, on the Mandelbulb scene that
+    only the sample step renders."""
+    scene, camera, cfg = cpu_case("bulb")
+    card = as_card(scene)
+    arrays = inject_params(card.arrays, extract_params(card.arrays))
+    assert rule(card, camera, cfg, arrays) is False  # grad mode on, leaves that want one
+    with torch.no_grad():
+        assert rule(card, camera, cfg, arrays) is True
+    assert rule(card, camera, cfg) is True
+    assert rule(scene, camera, cfg) is False  # the CPU's scene
+
+
+def test_a_cpu_sample_step_runs_eagerly_and_emits_no_graph_span(monkeypatch):
+    scene, camera, cfg = cpu_case("example")
+
+    def refuse(*a, **k):
+        raise AssertionError("a CPU sample step made graphs")
+
+    monkeypatch.setattr(graphs, "TripGraphs", refuse)
+    px, py, _ = render._tile_grid(cfg)
+    px, py = torch.as_tensor(px), torch.as_tensor(py)
+    keys0 = prng.fast_streams(SEED, py.to(torch.int64) * cfg.width + px.to(torch.int64))
+
+    def sample_step():
+        return integrator.radiance_regen(scene, scene.arrays, cfg, camera, px, py, keys0, 2,
+                                         cfg.effective_samples - 2)
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        sums, n = sample_step()
+    names = [e.name for e in prof.events()]
+    assert names.count("integrator.iteration") == n > 0
+    assert "integrator.graphed" not in names and "integrator.capture" not in names
+    again, n2 = sample_step()
+    assert n2 == n and all(torch.equal(a, b) for a, b in zip(sums, again))
 
 
 def test_a_cpu_frame_runs_eagerly_and_emits_no_graph_span(monkeypatch):
@@ -142,12 +189,13 @@ def cuda_device():
 
 
 class Counted:
-    """Counting wrappers in place of K1's and K7's module attributes, the
-    names a replay calls through."""
+    """Counting wrappers in place of the holes' module attributes (K1's and
+    K7's unless named), the names a replay calls through."""
 
-    def __init__(self, monkeypatch):
-        self.calls = {"sphere_min_t": 0, "rows_select": 0}
-        for owner, attr in ((spheres, "sphere_min_t"), (rows_select, "rows_select")):
+    def __init__(self, monkeypatch, holes=((spheres, "sphere_min_t"),
+                                          (rows_select, "rows_select"))):
+        self.calls = {attr: 0 for _, attr in holes}
+        for owner, attr in holes:
             monkeypatch.setattr(owner, attr, self._wrap(attr, getattr(owner, attr)))
 
     def _wrap(self, attr, fn):
@@ -280,3 +328,111 @@ def test_a_profiled_frame_captures_and_its_replayed_kernels_show(cuda_device, mo
     # the same kernels ran, though the host launched few of them
     assert abs(kernels - eager_kernels) <= 0.02 * eager_kernels, (kernels, eager_kernels)
     assert host.count("cudaLaunchKernel") < 0.25 * eager_host.count("cudaLaunchKernel")
+
+
+# -- the sample step on the card ---------------------------------------------
+
+BULB_CFG = RenderConfig(width=96, height=60, samples=9, passes=3)
+
+
+class Passes:
+    """A `render_passes` call's passes as `render_sums` met them: each
+    pass's pixels (the first pass's are every pixel, the later ones the
+    redo mask in tile order) and its sums, and the image after each pass."""
+
+    def __init__(self, monkeypatch, scene, camera, cfg):
+        self.pixels, self.sums, self.images = [], [], []
+        inner = render.render_sums
+
+        def recording(scene, camera, cfg, seed, px, py, **kwargs):
+            out = inner(scene, camera, cfg, seed, px, py, **kwargs)
+            self.pixels.append((np.array(px), np.array(py)))
+            self.sums.append(torch.stack(tuple(out)).cpu())
+            return out
+
+        keep = lambda done, total, img: self.images.append(img.copy())  # noqa: E731
+        with monkeypatch.context() as m:
+            m.setattr(render, "render_sums", recording)
+            render.render_passes(scene, camera, cfg, seed=SEED, progress=keep)
+            torch.cuda.synchronize()
+
+    def same(self, other) -> bool:
+        return (len(self.pixels) == len(other.pixels) == len(self.images) > 1
+                and all(np.array_equal(a, b) for p, q in zip(self.pixels, other.pixels)
+                        for a, b in zip(p, q))
+                and all(torch.equal(a, b) for a, b in zip(self.sums, other.sums))
+                and all(np.array_equal(a, b) for a, b in zip(self.images, other.images)))
+
+
+@pytest.mark.cuda
+def test_a_replayed_bulb_passes_frame_is_the_eager_frame(cuda_device, monkeypatch):
+    """Every pass of the Mandelbulb's adaptive frame through the replayed
+    sample step: the same pixels redone (the redo masks), the same sums and
+    images bit for bit, and K1, K6 and K7 called through their module
+    attributes as often as the eager loop calls them, one K6 a trip."""
+    scene, camera = golden.mandelbulb_scene(BULB_CFG, cuda_device)
+    assert rule(scene, camera, BULB_CFG)
+    counted = Counted(monkeypatch, graphs.HOLES)
+    trips = []
+    monkeypatch.setattr(graphs.TripGraphs, "end_trip",
+                        lambda self, f=graphs.TripGraphs.end_trip: (trips.append(1), f(self)))
+    made = []
+    monkeypatch.setattr(graphs.TripGraphs, "release",
+                        lambda self, f=graphs.TripGraphs.release: (made.append(1), f(self)))
+    graphed = Passes(monkeypatch, scene, camera, BULB_CFG)
+    graphed_calls = counted.take()
+    assert len(made) == BULB_CFG.passes  # one capture a pass: a pass is one call
+    assert len(trips) == graphed_calls["mandelbulb_march"] > 0  # every trip replayed
+    with monkeypatch.context() as m:
+        m.setattr(integrator, "replays_trips", lambda *a: False)
+        eager = Passes(m, scene, camera, BULB_CFG)
+    assert counted.take() == graphed_calls
+    assert graphed.same(eager)
+    redo = [p[0].size for p in graphed.pixels[1:]]
+    assert all(0 < r < BULB_CFG.width * BULB_CFG.height for r in redo), redo
+
+
+@pytest.mark.cuda
+def test_a_replayed_bulb_frame_counts_every_launch_and_ray(cuda_device, monkeypatch):
+    """The kernels' own counters over a replayed frame equal the eager
+    frame's: K1's, which it bumps under its module's name, and K6's and
+    K7's, which they bump under the name a capture cuts."""
+    scene, camera = golden.mandelbulb_scene(BULB_CFG, cuda_device)
+    assert rule(scene, camera, BULB_CFG)
+    k1, k7 = smt.sphere_min_t, rows_select.rows_select
+
+    def grew(frame):
+        def read():
+            k6 = mm.mandelbulb_march
+            return k1.launches, k7.launches, k6.launches, k6.rays
+
+        before = read()
+        frame()
+        torch.cuda.synchronize()
+        return tuple(a - b for a, b in zip(read(), before))
+
+    def bulb_frame():
+        render.render_passes(scene, camera, BULB_CFG, seed=SEED)
+
+    graphed = grew(bulb_frame)
+    with monkeypatch.context() as m:
+        m.setattr(integrator, "replays_trips", lambda *a: False)
+        eager = grew(bulb_frame)
+    assert graphed == eager and min(graphed) > 0, (graphed, eager)
+    assert graphed[0] == graphed[2]  # the light's K1 and the march K6, once a trip each
+
+
+@pytest.mark.cuda
+def test_a_bvh_route_scene_later_pass_makes_no_capture(cuda_device, monkeypatch):
+    cfg = RenderConfig(width=64, height=40, samples=4, passes=2, noise_threshold=0.0)
+    scene, camera = golden.mesh_scene(cfg, cuda_device, n_seg=24, n_ring=6)
+    assert not rule(scene, camera, cfg)
+
+    def refuse(*a, **k):
+        raise AssertionError("a BVH-route scene made graphs")
+
+    monkeypatch.setattr(graphs, "TripGraphs", refuse)
+    redone = render.render_passes.redone_pixels
+    img = render.render_passes(scene, camera, cfg, seed=SEED)
+    assert render.render_passes.redone_pixels - redone == cfg.width * cfg.height
+    assert np.isfinite(img).all()
