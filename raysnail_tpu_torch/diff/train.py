@@ -152,8 +152,9 @@ def make_train_step(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig, ta
         the regeneration route). Both key draws by (seed, pixel, sample,
         bounce), so they agree up to the order of the sums."""
         arrays = inject_params(scene.arrays, params)
-        backend = "fast" if cfg.rng == "auto" else cfg.rng
-        if contiguous and backend == "fast" and cfg.path_regen != "never":
+        # no Mandelbulb clause, unlike `make_frame_step`: as in the JAX
+        # package, a Mandelbulb scene's pass 1 takes the shuffled loop too
+        if contiguous and renderlib.regenerates(cfg):
             sums, _ = integrator.radiance_regen_shuffle(scene, arrays, cfg, camera, seed,
                                                         int(ids.size), int(ids[0]))
         else:

@@ -288,20 +288,7 @@ def radiance_regen(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
     packet for the traversal kernels. Draws are keyed by (seed, pixel,
     sample, bounce), fold_all(fold_all(keys0, sid), b), as in the shuffled
     integrator, so both compute the same estimate up to summation order.
-
-    Where `replays_trips` holds (on the card, no gradient wanted, no BVH
-    traversal), the call's first trip is captured as CUDA graphs with K1, K6
-    and K7 launched eagerly between them, and every later trip replays them
-    (`graphs.TripGraphs`): the same kernels on the same values, so the same
-    bits. The loop's state then lives in buffers that the trip's last piece
-    writes in place. The graphs and their memory pool are released when the
-    call returns.
-
-    The loop's condition is read on the host once per iteration, at its
-    end. Under a running profiler each trip is an `integrator.iteration`
-    span and its bounce body an `integrator.shade` span; a trip run from the
-    graphs holds an `integrator.graphed` span, and each stretch of the
-    capture an `integrator.capture` span.
+    The trips run through `run_trips`.
 
     Returns (L_sums (P,) Vec3, n_iterations)."""
     shape = px.shape
@@ -321,13 +308,20 @@ def radiance_regen(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
         return generate_rays(camera, px, py, s_i, s_j, sqrt_spp, cfg.width, cfg.height,
                              keys_s)
 
-    def trip_keys(sid, b):
+    # the loop's state: (o, d, T, L, time, alive, sid, b)
+    def trip_keys(state):
+        sid, b = state[6:]
         return prng.fold_all(prng.fold_all(keys0, sid), b)
 
-    def regenerate(o, d, T, L, time, alive, alive2, sid, b, bufs):
+    def bounce(state, kb):
+        o, d, T, L, time, alive, _, _ = state
+        return shade(arrays, o, d, T, L, alive, kb, time)
+
+    def regenerate(state, shaded):
         """The trip's bookkeeping after the shade -> the next trip's state
-        (o, d, T, L, time, alive, sid, b), written into `bufs` where they
-        are given, and whether a lane has samples left."""
+        and whether a lane has samples left."""
+        _, _, _, _, time, alive, sid, b = state
+        o, d, T, L, alive2 = shaded
         # a path at its final bounce contributes nothing more
         # (camera.rs:161-163): it is done the moment it is shaded
         alive2 = alive2 & (b + 1 < cfg.max_depth)
@@ -341,34 +335,7 @@ def radiance_regen(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
             time = torch.where(regen, rn.time, time)
         T = Vec3.where(regen, ones, T)
         b = torch.where(done, torch.zeros_like(b), b + 1)
-        state = (o, d, T, L, time, alive2 | regen, sid, b)
-        if bufs is not None:
-            for buf, value in zip(_leaves(bufs), _leaves(state)):
-                buf.copy_(value)
-            state = bufs
-        return state, (sid < s_end).any()
-
-    def loop(state, graphs=None):
-        """The trips from `state` until every lane is past s_end. With
-        `graphs`, each trip's pieces run through them and `state` is the
-        buffers they write."""
-        run = graphs.piece if graphs is not None else _call
-        bufs = state if graphs is not None else None
-        iterations = 0
-        more = px.numel() > 0  # every lane starts below s_end
-        while more:
-            with span("integrator.iteration"), (span("integrator.graphed") if graphs is not None
-                                                 else contextlib.nullcontext()):
-                o, d, T, L, time, alive, sid, b = state
-                kb = run(trip_keys, sid, b)
-                with span("integrator.shade"):
-                    o, d, T, L, alive2 = run(shade, arrays, o, d, T, L, alive, kb, time)
-                state, left = run(regenerate, o, d, T, L, time, alive, alive2, sid, b, bufs)
-                if graphs is not None:
-                    graphs.end_trip()
-                iterations += 1
-                more = bool(left)
-        return state[3], iterations
+        return (o, d, T, L, time, alive2 | regen, sid, b), (sid < s_end).any()
 
     # every tensor of the state its own memory (Vec3.full, where Vec3.ones
     # shares one among x, y and z), so that it can serve as a graph's buffer
@@ -379,17 +346,79 @@ def radiance_regen(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
              torch.ones(shape, dtype=torch.bool, device=device), sid,
              torch.zeros(shape, dtype=torch.int64, device=device))
     del r0
+    with call_graphs(scene, arrays, camera, routes) as graphs:
+        state, iterations = run_trips(state, trip_keys, bounce, regenerate, graphs)
+    return state[3], iterations
+
+
+def run_trips(state, trip_keys, bounce, regenerate, graphs=None):
+    """The one trip loop of both regeneration loops (`radiance_regen_shuffle`,
+    the frame step, and `radiance_regen`, the sample step): trips from
+    `state`, a tuple of tensors, Vec3s and Nones in which every lane starts
+    with work, until no lane has any left -> (the last state, the number of
+    trips).
+
+    A trip is three pieces: `trip_keys(state)` -> the bounce's keys,
+    `bounce(state, kb)` -> the shaded lanes, and `regenerate(state,
+    shaded)` -> (the next state, whether a lane has work left), which the
+    host reads once a trip, at its end.
+
+    With `graphs` (`call_graphs`: on the card, no gradient wanted, no BVH
+    traversal) each piece runs through `graphs.piece`: the call's first trip
+    is captured as CUDA graphs with K1, K6 and K7 launched eagerly between
+    them, and every later trip replays them (`graphs.TripGraphs`): the same
+    kernels on the same values, so the same bits, from a few dozen host
+    calls a trip instead of about a thousand. `state` is then the loop's
+    buffers, every tensor its own memory, and the last piece writes the
+    next state into them; a caller that refills them may call it again
+    on the same graphs. Without, each trip returns new tensors.
+
+    Under a running profiler each trip is an `integrator.iteration` span
+    and its bounce an `integrator.shade` span; a trip run from the graphs
+    holds an `integrator.graphed` span, and each stretch of the capture an
+    `integrator.capture` span."""
+    run = graphs.piece if graphs is not None else (lambda fn, *args: fn(*args))
+    bufs = state if graphs is not None else None
+
+    def advance(state, shaded):
+        state, left = regenerate(state, shaded)
+        if bufs is not None:
+            for buf, value in zip(_leaves(bufs), _leaves(state)):
+                buf.copy_(value)
+            state = bufs
+        return state, left
+
+    iterations = 0
+    more = _leaves(state)[0].numel() > 0
+    while more:
+        with span("integrator.iteration"), (span("integrator.graphed") if graphs is not None
+                                             else contextlib.nullcontext()):
+            kb = run(trip_keys, state)
+            with span("integrator.shade"):
+                shaded = run(bounce, state, kb)
+            state, left = run(advance, state, shaded)
+            if graphs is not None:
+                graphs.end_trip()
+            iterations += 1
+            more = bool(left)
+    return state, iterations
+
+
+@contextlib.contextmanager
+def call_graphs(scene: scenelib.Scene, arrays: scenelib.SceneArrays, camera,
+                routes: scenelib.Routes):
+    """-> where `replays_trips` holds, one `graphs.TripGraphs` for the
+    call, made and used under the scene's CUDA device and released when the
+    block ends; else None, and the trips run eagerly."""
     if not replays_trips(scene, arrays, camera, routes):
-        return loop(state)
-    with torch.cuda.device(device):
-        graphs = trip_graphs.TripGraphs(device)
-        out = loop(state, graphs)
-        graphs.release()
-    return out
-
-
-def _call(fn, *args):
-    return fn(*args)
+        yield None
+        return
+    with torch.cuda.device(scene.device):
+        graphs = trip_graphs.TripGraphs(scene.device)
+        try:
+            yield graphs
+        finally:
+            graphs.release()
 
 
 def _leaves(tree) -> list:
@@ -445,18 +474,9 @@ def radiance_regen_shuffle(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
     neighbouring pixels (coherent walks) for every k; the per-pixel sums
     are the same either way.
 
-    Where `replays_trips` holds (on the card, no gradient wanted, no BVH
-    traversal), the call's first trip is captured as CUDA graphs with K1
-    and K7 launched eagerly between them, and every later trip replays them
-    (`graphs.TripGraphs`): the same kernels on the same values, so the same
-    bits, from a few dozen host calls a trip instead of about a thousand.
-    The graphs and their memory pool are released when the call returns.
-
-    The loop's condition is read on the host once per iteration, at its
-    end. Under a running profiler each trip is an `integrator.iteration`
-    span and its bounce body an `integrator.shade` span; a trip run from the
-    graphs holds an `integrator.graphed` span, and each stretch of the
-    capture an `integrator.capture` span.
+    Each chunk's trips run through `run_trips`; the chunk's first cell is a
+    device value and its state is refilled in place, so one capture of
+    graphs serves every chunk of the call.
 
     Returns (L_sums row-major (N,) Vec3, n_iterations)."""
     n_pix = cfg.width * cfg.height
@@ -493,14 +513,11 @@ def radiance_regen_shuffle(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
         py = (tid // (cfg.width // tw)) * th + within // tw
         return py * cfg.width + px
 
-    def lane_pixel(k):
-        """Rotated lane slot -> (pixel id, px, py)."""
-        p = slot_pixel((lanes + k * S) % n_pix)
-        return p, (p % cfg.width).to(dtype), (p // cfg.width).to(dtype)
-
     def lane_keys(k, cs0):
-        p, px, py = lane_pixel(k)
-        return prng.fold_all(prng.fast_streams(seed, p), cs0 + k), px, py
+        """Rotated lane slot -> (its cell's keys, px, py)."""
+        p = slot_pixel((lanes + k * S) % n_pix)
+        return (prng.fold_all(prng.fast_streams(seed, p), cs0 + k),
+                (p % cfg.width).to(dtype), (p // cfg.width).to(dtype))
 
     def new_ray(k, cs0):
         keys_s, px, py = lane_keys(k, cs0)
@@ -510,13 +527,24 @@ def radiance_regen_shuffle(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
         return generate_rays(camera, px, py, s_i, s_j, sqrt_spp, cfg.width,
                              cfg.height, keys_s)
 
-    def trip_keys(k, b, cs0):
-        keys_s, _, _ = lane_keys(k, cs0)
-        return prng.fold_all(keys_s, b)
+    cs0 = torch.empty(1, dtype=torch.int64, device=device)
+    table = torch.empty((3, n_pix * C), dtype=dtype, device=device)
+    zeros = Vec3.zeros((n_pix,), dtype, device)
 
-    def regenerate(table, o, d, T, time, L_add, alive, alive2, k, b, cs0):
-        """The trip's bookkeeping after the shade -> the next trip's
-        (o, d, T, time, alive, k, b) and whether a lane has cells left."""
+    # the loop's state: (o, d, T, time, alive, k, b)
+    def trip_keys(state):
+        keys_s, _, _ = lane_keys(state[5], cs0)
+        return prng.fold_all(keys_s, state[6])
+
+    def bounce(state, kb):
+        o, d, T, time, alive, _, _ = state
+        return shade(arrays, o, d, T, zeros, alive, kb, time)
+
+    def regenerate(state, shaded):
+        """The trip's bookkeeping after the shade -> the next trip's state
+        and whether a lane has cells left."""
+        _, _, _, time, alive, k, b = state
+        o, d, T, L_add, alive2 = shaded
         # cell (lane, k) of the (N, C) table; a finished lane (k == C)
         # adds zero radiance, so its column is clamped
         cell = lanes * C + torch.clamp_max(k, C - 1)
@@ -534,71 +562,17 @@ def radiance_regen_shuffle(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
             time = torch.where(regen, rn.time, time)
         T = Vec3.where(regen, Vec3.ones((n_pix,), dtype, device), T)
         b = torch.where(alive2, b + 1, torch.zeros_like(b))
-        return o, d, T, time, alive2 | regen, k, b, (k < C).any()
+        return (o, d, T, time, alive2 | regen, k, b), (k < C).any()
 
-    def chunk_sums(table):
-        """Regroup: column c's row i is lane slot (i + c*S) mod N -> roll
-        forward to slot order (pixel order unless tiled), a column at a
-        time."""
-        table = table.view(3, n_pix, C)
-        for c in range(C):
-            shift = (c * S) % n_pix
-            yield Vec3(*(torch.roll(table[a, :, c], shift) for a in range(3)))
-
-    def chunks_eager():
-        L_pix = Vec3.zeros((n_pix,), dtype, device)
-        iterations = 0
-        for chunk in range(n_chunks):
-            cs0 = s0 + chunk * C
-            k = torch.zeros(n_pix, dtype=torch.int64, device=device)
-            b = torch.zeros(n_pix, dtype=torch.int64, device=device)
-            r0 = new_ray(k, cs0)
-            o, d = r0.origin, r0.direction
-            time = r0.time if scene.static.moving else None
-            T = Vec3.ones((n_pix,), dtype, device)
-            table = torch.zeros((3, n_pix * C), dtype=dtype, device=device)
-            alive = torch.ones(n_pix, dtype=torch.bool, device=device)
-            zeros = Vec3.zeros((n_pix,), dtype, device)
-
-            more = n_pix > 0  # every lane starts at k = 0 < C
-            while more:
-                with span("integrator.iteration"):
-                    kb = trip_keys(k, b, cs0)
-                    with span("integrator.shade"):
-                        o, d, T, L_add, alive2 = shade(arrays, o, d, T, zeros, alive, kb, time)
-                    o, d, T, time, alive, k, b, left = regenerate(
-                        table, o, d, T, time, L_add, alive, alive2, k, b, cs0)
-                    iterations += 1
-                    more = bool(left)
-            for add in chunk_sums(table):
-                L_pix = L_pix + add
-        return L_pix, iterations
-
-    def chunks_graphed(graphs):
-        """chunks_eager's loop with every trip's body run from `graphs`:
-        the call's first trip captures it, every later trip replays it.
-        The loop's state lives in buffers that the last piece writes in
-        place; the chunk's first cell is a device value, so that the graphs
-        serve every chunk."""
-        L_pix = Vec3.zeros((n_pix,), dtype, device)
-        iterations = 0
-        empty = lambda dt=dtype: torch.empty(n_pix, dtype=dt, device=device)  # noqa: E731
-        cs0 = torch.empty(1, dtype=torch.int64, device=device)
-        k, b = empty(torch.int64), empty(torch.int64)
-        o, d, T = (Vec3(empty(), empty(), empty()) for _ in range(3))
-        time = empty() if scene.static.moving else None
-        alive = empty(torch.bool)
-        table = torch.empty((3, n_pix * C), dtype=dtype, device=device)
-        zeros = Vec3.zeros((n_pix,), dtype, device)
-        state = (*o, *d, *T, alive, k, b) + ((time,) if time is not None else ())
-
-        def regenerate_in_place(o2, d2, T2, L_add, alive2):
-            o3, d3, T3, time3, alive3, k3, b3, left = regenerate(
-                table, o2, d2, T2, time, L_add, alive, alive2, k, b, cs0)
-            for buf, value in zip(state, (*o3, *d3, *T3, alive3, k3, b3, time3)):
-                buf.copy_(value)
-            return left
-
+    # the state's tensors, made once a call and refilled a chunk
+    empty = lambda dt=dtype: torch.empty(n_pix, dtype=dt, device=device)  # noqa: E731
+    o, d, T = (Vec3(empty(), empty(), empty()) for _ in range(3))
+    time = empty() if scene.static.moving else None
+    alive, k, b = empty(torch.bool), empty(torch.int64), empty(torch.int64)
+    state = (o, d, T, time, alive, k, b)
+    L_pix = Vec3.zeros((n_pix,), dtype, device)
+    iterations = 0
+    with call_graphs(scene, arrays, camera, routes) as graphs:
         for chunk in range(n_chunks):
             cs0.fill_(s0 + chunk * C)
             k.zero_()
@@ -612,29 +586,14 @@ def radiance_regen_shuffle(scene: scenelib.Scene, arrays: scenelib.SceneArrays,
             table.zero_()
             alive.fill_(True)
             del r0
-
-            more = n_pix > 0  # every lane starts at k = 0 < C
-            while more:
-                with span("integrator.iteration"), span("integrator.graphed"):
-                    kb = graphs.piece(trip_keys, k, b, cs0)
-                    with span("integrator.shade"):
-                        o2, d2, T2, L_add, alive2 = graphs.piece(
-                            shade, arrays, o, d, T, zeros, alive, kb, time)
-                    left = graphs.piece(regenerate_in_place, o2, d2, T2, L_add, alive2)
-                    graphs.end_trip()
-                    iterations += 1
-                    more = bool(left)
-            for add in chunk_sums(table):
-                L_pix = L_pix + add
-        return L_pix, iterations
-
-    if replays_trips(scene, arrays, camera, routes):
-        with torch.cuda.device(device):
-            graphs = trip_graphs.TripGraphs(device)
-            L_pix, iterations = chunks_graphed(graphs)
-            graphs.release()
-    else:
-        L_pix, iterations = chunks_eager()
+            _, n = run_trips(state, trip_keys, bounce, regenerate, graphs)
+            iterations += n
+            # regroup: column c's row i is lane slot (i + c*S) mod N -> roll
+            # forward to slot order (pixel order unless tiled)
+            columns = table.view(3, n_pix, C)
+            for c in range(C):
+                shift = (c * S) % n_pix
+                L_pix = L_pix + Vec3(*(torch.roll(columns[a, :, c], shift) for a in range(3)))
     if tile is not None:
         owner = torch.empty_like(lanes)
         owner[slot_pixel(lanes)] = lanes  # the slot holding pixel p

@@ -47,8 +47,15 @@ def _check(cfg: RenderConfig):
         raise NotImplementedError("not ported yet: " + "; ".join(problems))
 
 
-def _backend(cfg: RenderConfig) -> str:
-    return "fast" if cfg.rng == "auto" else cfg.rng
+def regenerates(cfg: RenderConfig) -> bool:
+    """Whether a render takes a path-regeneration integrator: the fast RNG
+    (rng "auto" or "fast") with path regeneration on. The one place that
+    picks the integrator: `sample_sums` takes `integrator.radiance_regen`
+    where it holds and the scan otherwise, `make_frame_step` the shuffled
+    loop where it holds and the scene has no Mandelbulb, and a train step's
+    pass 1 (`diff.train`) the shuffled loop where it holds and the ids are
+    a contiguous range."""
+    return ("fast" if cfg.rng == "auto" else cfg.rng) == "fast" and cfg.path_regen != "never"
 
 
 def sample_sums(scene: scenelib.Scene, cfg: RenderConfig, arrays: scenelib.SceneArrays,
@@ -70,9 +77,8 @@ def sample_sums(scene: scenelib.Scene, cfg: RenderConfig, arrays: scenelib.Scene
     px = torch.as_tensor(px, dtype=cfg.dtype, device=device)
     py = torch.as_tensor(py, dtype=cfg.dtype, device=device)
     pixel_ids = py.to(torch.int64) * cfg.width + px.to(torch.int64)
-    backend = _backend(cfg)
-    keys0 = prng.fast_streams(seed, pixel_ids) if backend == "fast" else None
-    if backend == "fast" and cfg.path_regen != "never":
+    keys0 = None if cfg.rng == "threefry" else prng.fast_streams(seed, pixel_ids)
+    if regenerates(cfg):
         if ids.size and not np.array_equal(ids, np.arange(ids[0], ids[0] + ids.size)):
             raise ValueError("sample_sums: sample_ids must be a contiguous ascending range, "
                              f"got {ids.tolist()}")
@@ -84,7 +90,7 @@ def sample_sums(scene: scenelib.Scene, cfg: RenderConfig, arrays: scenelib.Scene
     sqrt_spp = cfg.sqrt_spp
     sums = Vec3.zeros(px.shape, cfg.dtype, device)
     for sid in ids.tolist():
-        if backend == "fast":
+        if keys0 is not None:
             keys = prng.fold_all(keys0, sid)
         else:
             keys = prng.per_ray_keys(prng.fold(prng.key(seed, device), sid), pixel_ids)
@@ -115,7 +121,7 @@ def make_frame_step(scene: scenelib.Scene, cfg: RenderConfig):
     which the cross-pixel shuffle undoes). Callers then take the
     sample-step path in tile order."""
     _check(cfg)
-    if _backend(cfg) != "fast" or cfg.path_regen == "never" or scene.mandelbulbs:
+    if not regenerates(cfg) or scene.mandelbulbs:
         return None
 
     def step(arrays: scenelib.SceneArrays, camera: Camera, seed: int):

@@ -5,8 +5,10 @@ sample step's loop, which the Mandelbulb and every later adaptive pass run.
 On the CPU: the rule that decides whether a call replays, read from the
 call alone (the scene's device and routes, whether a tensor wants a
 gradient), on scenes lowered to the CPU and then labelled as the card's,
-which is all the rule reads; and a CPU frame and sample step, which never
-capture.
+which is all the rule reads; a CPU frame and sample step, which never
+capture; and the trip loop's buffer form (`integrator.run_trips` with a
+pass-through stand-in for the graphs) against the eager loop, on a frame
+of two chunks and on the sample step.
 
 On the card (marked `cuda`): a replayed frame against the eager loop's, bit
 for bit, with K1 and K7 called as often and through their module
@@ -21,6 +23,7 @@ later pass, which makes no capture. The file imports no JAX, so on a machine wit
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_graphs.py -q
 """
 
+import contextlib
 import dataclasses
 import functools
 import glob
@@ -166,6 +169,52 @@ def test_a_cpu_frame_runs_eagerly_and_emits_no_graph_span(monkeypatch):
     again, n2 = integrator.radiance_regen_shuffle(scene, scene.arrays, cfg, camera, SEED,
                                                   cfg.effective_samples)
     assert n2 == n and all(torch.equal(a, b) for a, b in zip(sums, again))
+
+
+class PassThrough:
+    """A stand-in for `graphs.TripGraphs` on the CPU: each piece calls its
+    function, and a trip's end only counts the trip."""
+
+    def __init__(self):
+        self.pieces = self.trips = 0
+
+    def piece(self, fn, *args):
+        self.pieces += 1
+        return fn(*args)
+
+    def end_trip(self):
+        self.trips += 1
+
+
+@pytest.mark.parametrize("loop", ["frame-chunks", "sample-step"])
+def test_run_trips_buffer_form_is_the_eager_loop(loop, monkeypatch):
+    """`run_trips` with graphs, the state in buffers that each trip writes
+    in place (and that the frame step refills a chunk), against the eager
+    loop: the same bits and the same trips, three pieces a trip."""
+    scene, camera, cfg = cpu_case("example")
+    if loop == "frame-chunks":
+        cfg = cfg.replace(regen_chunk_cap=2)
+        spp = cfg.effective_samples
+        assert spp // integrator.chunk_width(spp, cfg.chunk_cap) >= 2
+
+        def call():
+            return integrator.radiance_regen_shuffle(scene, scene.arrays, cfg, camera, SEED, spp)
+    else:
+        px, py, _ = render._tile_grid(cfg)
+        px, py = torch.as_tensor(px), torch.as_tensor(py)
+        keys0 = prng.fast_streams(SEED, py.to(torch.int64) * cfg.width + px.to(torch.int64))
+
+        def call():
+            return integrator.radiance_regen(scene, scene.arrays, cfg, camera, px, py, keys0, 1,
+                                             cfg.effective_samples - 1)
+
+    want, n = call()
+    stand_in = PassThrough()
+    monkeypatch.setattr(integrator, "call_graphs",
+                        lambda *a: contextlib.nullcontext(stand_in))
+    got, n_graphed = call()
+    assert n_graphed == n == stand_in.trips > 0 and stand_in.pieces == 3 * n
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_a_csg_mesh_above_the_dense_size_walks_the_bvh():
