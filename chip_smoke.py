@@ -1549,7 +1549,7 @@ def run(device: torch.device, card: str, profile: bool) -> list:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sums = render_mod.render_sums(mscene, mcam, packet_cfg, MESH_SEED, px, py)
-    img = render_mod._to_image(sums, packet_cfg)[inv].reshape(MESH_H, MESH_W, 3)
+    img = render_mod._display(sums, packet_cfg).cpu().numpy()[inv].reshape(MESH_H, MESH_W, 3)
     seconds = time.perf_counter() - t0
     launches = counters.read()
     d_img = float(np.abs(img - mesh_runs["packet tri"][3]).max())
@@ -2327,7 +2327,7 @@ def sharded_phase(device, card: str, counters) -> dict:
     from raysnail_tpu_torch.parallel import (distributed, dryrun, make_mesh,
                                              make_padded_sharded_step, make_sharded_frame_step,
                                              make_sharded_train_step, render_sharded)
-    from raysnail_tpu_torch.render import (_tile_grid, _to_image, make_frame_step,
+    from raysnail_tpu_torch.render import (_display, _tile_grid, make_frame_step,
                                            render_passes, render_sums)
     from raysnail_tpu_torch.sdl.driver import build_scene
 
@@ -2391,7 +2391,7 @@ def sharded_phase(device, card: str, counters) -> dict:
         peak = torch.cuda.max_memory_allocated() - base
         launches = counters.read()
         t0 = time.perf_counter()
-        ref = _to_image(render_sums(scene, camera, cfg, 0, px, py), cfg)[inv]
+        ref = _display(render_sums(scene, camera, cfg, 0, px, py), cfg).cpu().numpy()[inv]
         ref_seconds = time.perf_counter() - t0
         d = float(np.abs(img - ref.reshape(img.shape)).max())
         phase("sharded", f"(b) render_sharded {WIDTH}x{HEIGHT}@{spp}spp on {card}: "

@@ -37,7 +37,7 @@ from raysnail_tpu_torch.camera import Camera, generate_rays
 from raysnail_tpu_torch.config import RenderConfig
 from raysnail_tpu_torch.prelude import color as colorlib
 from raysnail_tpu_torch.prelude import rng as prng
-from raysnail_tpu_torch.prelude.vec import Vec3
+from raysnail_tpu_torch.prelude.vec import Vec3, div_const
 from raysnail_tpu_torch.utils.profiling import span
 
 
@@ -139,25 +139,43 @@ def _full_grid(cfg: RenderConfig):
 TILE_W, TILE_H = 16, 8  # 16x8 = 128 pixels = one traversal packet
 
 
-def _tile_key(px, py, width: int):
-    """Spatial sort key: 16x8 image tiles in row-major tile order, row-major
-    within the tile. 128 consecutive rays = one compact-frustum packet for
-    the packet traversal kernel instead of a strip of image rows."""
-    x = np.asarray(px, np.int64)
-    y = np.asarray(py, np.int64)
-    tiles_x = -(-width // TILE_W)
-    return (((y // TILE_H) * tiles_x + x // TILE_W) * TILE_H
-            + (y % TILE_H)) * TILE_W + (x % TILE_W)
+def _tile_rank(width: int, height: int, device=None) -> torch.Tensor:
+    """-> (W*H,) int64: where each pixel, in row-major order, stands in the
+    16x8 tile order (image tiles in row-major tile order, row-major within
+    the tile; 128 consecutive rays = one compact-frustum packet for the
+    packet traversal kernel instead of a strip of image rows). In closed
+    form, elementwise: the pixels of the tile rows above, of the tiles to
+    the left in the pixel's tile row, then its place in its tile, whose
+    width and height are cut at the image's right and bottom edges. The
+    tile keys are unique, so this is the rank of the JAX package's stable
+    sort by `_tile_key`."""
+    p = torch.arange(width * height, device=device)
+    x, y = p % width, p // width
+    x0, y0 = x - x % TILE_W, y - y % TILE_H  # the tile's corner
+    tile_w = torch.clamp_max(width - x0, TILE_W)
+    tile_h = torch.clamp_max(height - y0, TILE_H)
+    return y0 * width + x0 * tile_h + (y - y0) * tile_w + (x - x0)
+
+
+def _tile_order(width: int, height: int, device=None) -> torch.Tensor:
+    """-> (W*H,) int64: the row-major pixel indices in tile order (the
+    inverse of `_tile_rank`)."""
+    rank = _tile_rank(width, height, device)
+    order = torch.empty_like(rank)
+    order[rank] = torch.arange(rank.numel(), device=device)
+    return order
+
+
+def _pixels(idx: torch.Tensor, width: int, dtype=torch.float32):
+    """Row-major pixel indices -> their (px, py)."""
+    return (idx % width).to(dtype), (idx // width).to(dtype)
 
 
 def _tile_grid(cfg: RenderConfig):
-    """-> (px, py, inv): the full pixel list in tile-major order plus the
-    inverse permutation back to row-major image order."""
-    px, py = _full_grid(cfg)
-    order = np.argsort(_tile_key(px, py, cfg.width), kind="stable")
-    inv = np.empty_like(order)
-    inv[order] = np.arange(order.size)
-    return px[order], py[order], inv
+    """-> (px, py, inv) (numpy): the full pixel list in tile-major order plus
+    the inverse permutation back to row-major image order."""
+    px, py = _pixels(_tile_order(cfg.width, cfg.height), cfg.width)
+    return px.numpy(), py.numpy(), _tile_rank(cfg.width, cfg.height).numpy()
 
 
 def _sample_chunks(cfg: RenderConfig, n_pix: int, multiple_of: int = 1,
@@ -193,24 +211,31 @@ def render_sums(scene, camera, cfg, seed, px, py, step=None, arrays=None,
     return accum
 
 
-def _to_image(accum: Vec3, cfg: RenderConfig) -> np.ndarray:
-    """Radiance sums -> (P, 3) float32 display colors (numpy)."""
-    img = colorlib.into_color(accum, float(cfg.effective_samples), cfg.gamma)
-    return img.to_array().cpu().numpy()
+def _display(accum: Vec3, cfg: RenderConfig) -> torch.Tensor:
+    """Radiance sums -> (P, 3) float32 display colors, on the sums' device."""
+    return colorlib.into_color(accum, float(cfg.effective_samples), cfg.gamma).to_array()
+
+
+def _host(img: torch.Tensor, cfg: RenderConfig) -> np.ndarray:
+    """A (W*H, 3) row-major display image -> (H, W, 3) float32 numpy."""
+    return img.reshape(cfg.height, cfg.width, 3).cpu().numpy()
 
 
 def _first_pass(scene, camera, cfg, seed, arrays, frame, step=None,
-                k_multiple: int = 1) -> np.ndarray:
-    """One full frame -> (H, W, 3) display image: through `frame` (row-major
-    sums) where it is given, else the sample step over every pixel in tile
-    order."""
+                k_multiple: int = 1) -> torch.Tensor:
+    """One full frame -> (W*H, 3) row-major display image on the scene's
+    device: through `frame` (row-major sums) where it is given, else the
+    sample step over every pixel in tile order, gathered back to row-major
+    order on the device."""
     if frame is not None:
         accum, _ = frame(arrays if arrays is not None else scene.arrays, camera, seed)
-        return _to_image(accum, cfg).reshape(cfg.height, cfg.width, 3)
-    px, py, inv = _tile_grid(cfg)
+        return _display(accum, cfg)
+    px, py = _pixels(_tile_order(cfg.width, cfg.height, scene.device), cfg.width, cfg.dtype)
     accum = render_sums(scene, camera, cfg, seed, px, py, step=step, arrays=arrays,
                         k_multiple=k_multiple)
-    return _to_image(accum, cfg)[inv].reshape(cfg.height, cfg.width, 3)
+    # the rank is made again rather than held through the pass, whose peak
+    # memory it would raise
+    return _display(accum, cfg)[_tile_rank(cfg.width, cfg.height, scene.device)]
 
 
 def render(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
@@ -218,43 +243,58 @@ def render(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
     """Single-pass full frame -> (H, W, 3) float32 display image (numpy):
     the frame step, or where it does not apply the sample-step path over
     every pixel in tile order."""
-    return _first_pass(scene, camera, cfg, seed, arrays, make_frame_step(scene, cfg))
+    return _host(_first_pass(scene, camera, cfg, seed, arrays, make_frame_step(scene, cfg)), cfg)
 
 
 # -- multi-pass adaptive oversampling ---------------------------------------
 
-def calc_noise(img: np.ndarray, compat_bug: bool = False) -> np.ndarray:
-    """Per-pixel noise: sum over the 5x5 neighborhood of squared RGB distance
-    to the center (raysnail.rs:138-173). Out-of-bounds neighbors count 0.
-    compat_bug=True replicates `let x = y` (raysnail.rs:163), which makes the
-    window columns track the row index."""
+NOISE_RADIUS = 2  # the 5x5 window
+
+
+def _square_sum(d: torch.Tensor) -> torch.Tensor:
+    """(..., 3) differences -> (d0 * d0 + d1 * d1) + d2 * d2, numpy's order."""
+    sq = d * d
+    return (sq[..., 0] + sq[..., 1]) + sq[..., 2]
+
+
+def calc_noise(img: torch.Tensor, compat_bug: bool = False) -> torch.Tensor:
+    """Per-pixel noise of an (H, W, 3) float32 display image -> (H, W)
+    float32 on the image's device: the sum over the 5x5 window of the
+    squared RGB distance to the centre (raysnail.rs:138-173), a neighbour
+    outside the image adding nothing. The offsets go `dy` outer and `dx`
+    inner, and a term sums its channels as numpy does, so the map is the
+    JAX package's numpy `calc_noise` bit for bit. compat_bug=True
+    replicates `let x = y` (raysnail.rs:163): the window's columns follow
+    the row, y + dx."""
     h, w, _ = img.shape
-    noise = np.zeros((h, w), np.float32)
-    if not compat_bug:
-        for dy in range(-2, 3):
-            for dx in range(-2, 3):
-                shifted = np.zeros_like(img)
-                ys = slice(max(0, dy), h + min(0, dy))
-                yd = slice(max(0, -dy), h + min(0, -dy))
-                xs = slice(max(0, dx), w + min(0, dx))
-                xd = slice(max(0, -dx), w + min(0, -dx))
-                shifted[yd, xd] = img[ys, xs]
-                # out-of-bounds -> same as center -> zero diff
-                mask = np.zeros((h, w, 1), np.float32)
-                mask[yd, xd] = 1.0
-                diff = (img - shifted) * mask
-                noise += np.sum(diff * diff, axis=-1)
-    else:
-        ys, _ = np.mgrid[0:h, 0:w]
-        for dy in range(-2, 3):
-            for dx in range(-2, 3):
-                yy = ys + dy
-                xx = ys + dx  # the reference's x = y bug
-                inb = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
-                nb = img[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)]
-                diff = np.where(inb[..., None], img - nb, 0.0)
-                noise += np.sum(diff * diff, axis=-1)
+    noise = torch.zeros((h, w), dtype=img.dtype, device=img.device)
+    for dy in range(-NOISE_RADIUS, NOISE_RADIUS + 1):
+        for dx in range(-NOISE_RADIUS, NOISE_RADIUS + 1):
+            if not compat_bug:
+                # the centres [yd, xd] whose neighbour [ys, xs] lies inside
+                ys, yd = slice(max(0, dy), h + min(0, dy)), slice(max(0, -dy), h + min(0, -dy))
+                xs, xd = slice(max(0, dx), w + min(0, dx)), slice(max(0, -dx), w + min(0, -dx))
+                noise[yd, xd] += _square_sum(img[yd, xd] - img[ys, xs])
+                continue
+            # the rows y whose one neighbour (y + dy, y + dx) lies inside
+            lo, hi = max(0, -dy, -dx), min(h, h - dy, w - dx)
+            if lo < hi:
+                y = torch.arange(lo, hi, device=img.device)
+                noise[lo:hi] += _square_sum(img[lo:hi] - img[y + dy, y + dx][:, None, :])
     return noise
+
+
+def noise_mask(img: torch.Tensor, threshold: float, compat_bug: bool = False) -> torch.Tensor:
+    """-> (H, W) bool, the pixels whose noise reaches `threshold`, rounded to
+    float32 first as numpy compares a float32 map with a Python number."""
+    return calc_noise(img, compat_bug) >= float(np.float32(threshold))
+
+
+def _blend(old: torch.Tensor, new: torch.Tensor, k: int) -> torch.Tensor:
+    """The running average of display colors after pass k, (old * k + new)
+    / (k + 1): the divisor a tensor (`div_const`), so that it rounds as
+    numpy's float32 division does on either device."""
+    return div_const(old * k + new, k + 1.0)
 
 
 def render_passes(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
@@ -265,7 +305,15 @@ def render_passes(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
     pass k re-renders the pixels whose noise reaches cfg.noise_threshold, in
     tile order through the sample step, with seed + k, and running-averages
     display colors (old*k + new)/(k+1). `progress(done, total, img)` is
-    called after each pass; returning False cancels.
+    called after each pass with the (H, W, 3) float32 numpy image; returning
+    False cancels. -> that image.
+
+    The image stays a (W*H, 3) tensor on the scene's device from the first
+    pass to the last: the noise mask is `noise_mask`, the redo list the tile
+    order filtered by the mask, the blend divides by a tensor
+    (`prelude.vec.div_const`), so every pass has the bits of the JAX
+    package's numpy passes. A later pass syncs with the host once, for
+    the length of its redo list.
 
     `step` may be a sharded sample step (`parallel.make_padded_sharded_step`)
     with `k_multiple` = the mesh's sample-axis size, so that every pass runs
@@ -278,39 +326,40 @@ def render_passes(scene: scenelib.Scene, camera: Camera, cfg: RenderConfig,
 
     Under a running profiler the call is one `render.frame` span holding a
     `render.pass` span a pass, and each later pass a `render.noise` span
-    (the noise map, its mask and the tile sort) before its render.
-    `render_passes.redone_pixels` counts the pixels the later passes
-    re-render, over every call."""
+    (the noise mask and the redo list, whose length waits on the pass's
+    queued device work) before its render. `render_passes.redone_pixels`
+    counts the pixels the later passes re-render, over every call."""
     with span("render.frame"):
         spp = cfg.effective_samples
-        h, w = cfg.height, cfg.width
         frame = frame_step if frame_step is not None else (
             make_frame_step(scene, cfg) if step is None and k_multiple == 1 else None)
         step = step or make_sample_step(scene, cfg)
         with span("render.pass"):
             img = _first_pass(scene, camera, cfg, seed, arrays, frame, step, k_multiple)
-        if progress is not None and progress(spp, spp * cfg.passes, img) is False:
-            return img
-        px_full, py_full = _full_grid(cfg)
+        shown = None  # the numpy copy last handed to progress
+        if progress is not None:
+            shown = _host(img, cfg)
+            if progress(spp, spp * cfg.passes, shown) is False:
+                return shown
+        order = _tile_order(cfg.width, cfg.height, img.device) if cfg.passes > 1 else None
         for k in range(1, cfg.passes):
             with span("render.pass"):
                 with span("render.noise"):
-                    redo = calc_noise(img, cfg.compat_noise_bug) >= cfg.noise_threshold
-                    idx = np.flatnonzero(redo.ravel())
-                    # tile-coherent dispatch order for the sparse active set too
-                    idx = idx[np.argsort(_tile_key(px_full[idx], py_full[idx], w),
-                                         kind="stable")]
-                if idx.size == 0:
+                    redo = noise_mask(img.view(cfg.height, cfg.width, 3), cfg.noise_threshold,
+                                      cfg.compat_noise_bug).view(-1)
+                    idx = order[redo[order]]  # tile-coherent dispatch order
+                if idx.numel() == 0:
                     break
-                render_passes.redone_pixels += int(idx.size)
-                sums = render_sums(scene, camera, cfg, seed + k, px_full[idx], py_full[idx],
-                                   step=step, arrays=arrays, k_multiple=k_multiple)
-                flat = img.reshape(-1, 3)
-                flat[idx] = (flat[idx] * k + _to_image(sums, cfg)) / (k + 1.0)
-                img = flat.reshape(h, w, 3)
-            if progress is not None and progress(spp * (k + 1), spp * cfg.passes, img) is False:
-                break
-        return img
+                render_passes.redone_pixels += idx.numel()
+                px, py = _pixels(idx, cfg.width, cfg.dtype)
+                sums = render_sums(scene, camera, cfg, seed + k, px, py, step=step,
+                                   arrays=arrays, k_multiple=k_multiple)
+                img[idx] = _blend(img[idx], _display(sums, cfg), k)
+            if progress is not None:
+                shown = _host(img, cfg)
+                if progress(spp * (k + 1), spp * cfg.passes, shown) is False:
+                    break
+        return shown if shown is not None else _host(img, cfg)
 
 
 render_passes.redone_pixels = 0

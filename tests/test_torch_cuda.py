@@ -17,7 +17,9 @@ counter);
 and for the Mandelbulb march: t, valid, normal, u, v and the step and
 iteration counts bit-equal; and for the rows' select: K7 equal to
 index_select, K7b bit-equal to its plain version and to itself on a second
-call, so a train step run twice gives the same bits.
+call, so a train step run twice gives the same bits; and for the adaptive
+passes: the noise map and its mask on the card equal the CPU's at and
+beside the threshold, and the blend bit-equal to numpy's.
 """
 
 import numpy as np
@@ -935,3 +937,82 @@ def test_train_step_repeats_bit_for_bit(cuda_device):
         p1, _, loss = step(p0, state, 1, np.arange(cfg.effective_samples))
         runs.append([x.detach().view(torch.int32).clone() for x in leaves(p1)])
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# -- the adaptive passes' noise mask and blend on the card --------------------
+
+def noise_image(shape, seed, device):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.random((*shape, 3)).astype(np.float32)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compat_bug", [False, True], ids=["window", "compat"])
+@pytest.mark.parametrize("shape", [(1, 1), (2, 3), (7, 9), (9, 4), (40, 56), (600, 1000)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_noise_mask_on_the_card_is_the_cpu_s(cuda_device, shape, compat_bug):
+    """The noise map on the card against the CPU's, bit for bit, and the
+    mask at a threshold a pixel's noise meets exactly and at the next float
+    above it (the `>=` edge)."""
+    from raysnail_tpu_torch import render
+
+    img = noise_image(shape, 5, cuda_device)
+    noise = render.calc_noise(img, compat_bug)
+    assert torch.equal(noise.cpu(), render.calc_noise(img.cpu(), compat_bug))
+    middle = noise.numel() // 2
+    at = noise.reshape(-1)[middle].item()
+    above = float(np.nextafter(np.float32(at), np.float32(np.inf)))
+    for t in (at, above, 0.01):
+        got = render.noise_mask(img, t, compat_bug)
+        assert got.shape == shape and got.device == img.device
+        assert torch.equal(got.cpu(), render.noise_mask(img.cpu(), t, compat_bug)), t
+    assert render.noise_mask(img, at, compat_bug).reshape(-1)[middle]
+    assert not render.noise_mask(img, above, compat_bug).reshape(-1)[middle]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_blend_rounds_as_numpy(cuda_device, k):
+    """The passes' running average on the card against numpy's float32
+    (old * k + new) / (k + 1.0), bit for bit."""
+    from raysnail_tpu_torch import render
+
+    rng = np.random.default_rng(k)
+    old, new = (rng.random((200_003, 3)).astype(np.float32) for _ in range(2))
+    got = render._blend(torch.from_numpy(old).to(cuda_device),
+                        torch.from_numpy(new).to(cuda_device), k).cpu().numpy()
+    want = (old * k + new) / (k + 1.0)
+    assert want.dtype == np.float32 and np.array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_a_bulb_passes_frame_masks_on_the_card_as_on_the_cpu(cuda_device, monkeypatch):
+    """A Mandelbulb frame of three passes on the card: a mask a later pass,
+    made on the card from the image there, each the CPU's mask of the
+    image that `progress` got from the pass before; a single pass makes
+    none."""
+    from raysnail_tpu_torch import render
+    from raysnail_tpu_torch.config import RenderConfig
+    from raysnail_tpu_torch.utils import golden
+
+    cfg = RenderConfig(width=96, height=60, samples=9, passes=3)
+    scene, camera = golden.mandelbulb_scene(cfg, cuda_device)
+    images, masks = [], []
+    inner = render.noise_mask
+
+    def recording(img, threshold, compat_bug=False):
+        assert img.device.type == "cuda"
+        masks.append(inner(img, threshold, compat_bug))
+        return masks[-1]
+
+    with monkeypatch.context() as m:
+        m.setattr(render, "noise_mask", recording)
+        img = render.render_passes(scene, camera, cfg, seed=3,
+                                   progress=lambda d, t, im: images.append(im.copy()))
+        assert len(masks) == cfg.passes - 1 and len(images) == cfg.passes
+        assert np.array_equal(img, images[-1])
+        for prev, mask in zip(images, masks):
+            want = inner(torch.from_numpy(prev), cfg.noise_threshold)
+            assert torch.equal(mask.cpu(), want) and 0 < int(mask.sum()) < mask.numel()
+        render.render_passes(scene, camera, cfg.replace(passes=1), seed=3)
+        assert len(masks) == cfg.passes - 1

@@ -395,7 +395,7 @@ class Passes:
 
         def recording(scene, camera, cfg, seed, px, py, **kwargs):
             out = inner(scene, camera, cfg, seed, px, py, **kwargs)
-            self.pixels.append((np.array(px), np.array(py)))
+            self.pixels.append((px.cpu().numpy(), py.cpu().numpy()))
             self.sums.append(torch.stack(tuple(out)).cpu())
             return out
 

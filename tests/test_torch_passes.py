@@ -1,8 +1,9 @@
 """The port's sample-step path and adaptive passes against the JAX
 package's, on the CPU.
 
-  * `calc_noise`, `_tile_key`, `_tile_grid` and `_sample_chunks` equal the
-    JAX package's (plain numpy on both sides);
+  * `calc_noise` (PyTorch) and its mask equal the JAX package's numpy
+    `calc_noise` and its threshold, and `_tile_grid` (the tile order in
+    closed form) and `_sample_chunks` equal the JAX package's;
   * `render_sums` over the tile-ordered pixel list and `render_passes` with
     passes=3, example.sdl at 96x64@4spp, against the JAX package's per pixel;
   * `sample_sums` on a sparse pixel list of a small mesh scene against the
@@ -69,19 +70,24 @@ def _assert_close(img, ref, share):
     assert dmean <= MEAN_ATOL, dmean
 
 
-# -- the pure numpy helpers ------------------------------------------------------
+# -- the noise mask, the tile order and the chunks -------------------------------
 
 @pytest.mark.parametrize("compat_bug", [False, True])
-@pytest.mark.parametrize("shape", [(40, 56), (7, 9)])
+@pytest.mark.parametrize("shape", [(40, 56), (7, 9), (9, 4)])
 def test_calc_noise_equals_jax(shape, compat_bug):
+    """The noise bit for bit, and the mask at a threshold that a pixel's
+    noise meets exactly."""
     img = np.random.default_rng(3).random((*shape, 3)).astype(np.float32)
-    got = trender.calc_noise(img, compat_bug)
+    got = trender.calc_noise(torch.from_numpy(img), compat_bug).numpy()
     want = jrender.calc_noise(img, compat_bug)
     assert got.dtype == want.dtype and np.array_equal(got, want)
     assert got.max() > 0
+    t = float(np.median(want))
+    mask = trender.noise_mask(torch.from_numpy(img), t, compat_bug).numpy()
+    assert np.array_equal(mask, want >= t) and 0 < mask.sum() < mask.size
 
 
-@pytest.mark.parametrize("size", [(96, 64), (100, 37), (16, 8)])
+@pytest.mark.parametrize("size", [(96, 64), (100, 37), (16, 8), (1000, 600), (5, 3)])
 def test_tile_grid_and_sample_chunks_equal_jax(size):
     w, h = size
     tcfg, jcfg = TConfig(width=w, height=h, samples=36), JConfig(width=w, height=h, samples=36)
@@ -171,6 +177,42 @@ def test_render_passes_stops_when_nothing_is_noisy_or_on_cancel():
     trender.render_passes(scene, camera, noisy, seed=1,
                           progress=lambda d, t, im: done.append(d) or d < 8)
     assert done == [4, 4, 8]  # cancelled after the second pass
+
+
+@pytest.mark.parametrize("compat_bug", [False, True])
+def test_later_passes_redo_the_host_construction_s_list(compat_bug):
+    """Each later pass's pixel list, as the sample step meets it, is the one
+    the host built from the pass before: the JAX package's noise of the
+    program's previous image at the threshold, in row-major order, stably
+    sorted by the JAX package's tile key. `progress` gets (H, W, 3) float32
+    numpy images and `redone_pixels` counts the lists."""
+    cfg = TConfig(gamma=False, **SIZE, passes=3, noise_threshold=THRESHOLD,
+                  compat_noise_bug=compat_bug)
+    scene, camera = tbuild(SCENE, cfg, "cpu")
+    inner, met, images = trender.make_sample_step(scene, cfg), {}, []
+
+    def recording(arrays, cam, seed, ids, px, py):
+        met[seed] = (np.asarray(px), np.asarray(py))
+        return inner(arrays, cam, seed, ids, px, py)
+
+    def keep(done, total, img):
+        assert isinstance(img, np.ndarray) and img.dtype == np.float32
+        assert img.shape == (cfg.height, cfg.width, 3)
+        images.append(img.copy())
+
+    redone = trender.render_passes.redone_pixels
+    trender.render_passes(scene, camera, cfg, seed=SEED, step=recording, progress=keep)
+    assert sorted(met) == [SEED, SEED + 1, SEED + 2] and len(images) == 3
+    w = cfg.width
+    for k in (1, 2):
+        idx = np.flatnonzero(jrender.calc_noise(images[k - 1], compat_bug) >= THRESHOLD)
+        idx = idx[np.argsort(jrender._tile_key(idx % w, idx // w, w), kind="stable")]
+        px, py = met[SEED + k]
+        assert 0 < idx.size < w * cfg.height
+        assert np.array_equal(px, (idx % w).astype(np.float32))
+        assert np.array_equal(py, (idx // w).astype(np.float32))
+    assert trender.render_passes.redone_pixels - redone == met[SEED + 1][0].size + \
+        met[SEED + 2][0].size
 
 
 # -- the two integrators on a small mesh scene ----------------------------------

@@ -155,7 +155,8 @@ def test_a_passes_frame_holds_its_passes_noise_and_marches(bulb, monkeypatch):
     assert len(noise) == BULB_CFG.passes - 1 and all(inside(z, passes[1:]) for z in noise)
     assert len(marches) == len(its) == len(marched) > 0
     assert all(inside(m, its) for m in marches)
-    redo = [int((render.calc_noise(a) >= BULB_CFG.noise_threshold).sum()) for a in images[:-1]]
+    redo = [int(render.noise_mask(torch.from_numpy(a), BULB_CFG.noise_threshold).sum())
+            for a in images[:-1]]
     n_pix = BULB_CFG.width * BULB_CFG.height
     assert all(0 < r < n_pix for r in redo) and set(marched) == {n_pix, *redo}
     assert render.render_passes.redone_pixels - redone == 2 * sum(redo)
